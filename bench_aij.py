@@ -8,22 +8,16 @@ actually ships, solved by PETSc through its patched general-CSR kernel,
 reference's best node KSPSolve ~25-35 s (BASELINE.md; 30 s comparison
 point).
 
-Prints exactly one JSON line on stdout.
+Prints exactly one JSON line on stdout, naming the device it ran on.  Exits
+non-zero, printing no result, when JAX finds no GPU.
 """
 
 import json
-import os
 import sys
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    # the env var alone does not override an installed TPU plugin
-    # in-process (same policy as __main__.py / bench.py)
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/tpusparse_xla")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 BASELINE_SOLVE_S = 30.0  # reference best-node KSPSolve, BASELINE.md table
 N = 300
@@ -31,19 +25,15 @@ RTOL = 1e-8
 
 
 def main() -> None:
-    from bench import _wait_for_device
-
-    if not _wait_for_device():
-        print("bench_aij: no usable accelerator (device discovery"
-              " hung/failed repeatedly); aborting instead of hanging",
-              file=sys.stderr)
-        raise SystemExit(3)
-
+    from tpusparse.bench.device import require_gpu
     from tpusparse.bench.driver import solve_poisson
+    from tpusparse.utils.compile_cache import enable_compile_cache
 
+    device = require_gpu("bench_aij")
+    enable_compile_cache()
     # default: production aij (structure detection on — the star proof
-    # lifts this matrix onto the fused structured executor).  --nodetect:
-    # the pure general banded executor, no structural shortcuts.
+    # lifts this matrix onto the structured executor).  --nodetect: the
+    # pure general banded executor, no structural shortcuts.
     detect = "--nodetect" not in sys.argv
     rep = solve_poisson(N, rtol=RTOL, atol=1e-12, pc="gamg",
                         mat_type="aij", structure_detect=detect)
@@ -53,6 +43,7 @@ def main() -> None:
         "value": round(rep.t_solve, 6),
         "unit": "s",
         "vs_baseline": round(BASELINE_SOLVE_S / rep.t_solve, 3),
+        "device": device,
     }
     print(rep.reference_block(), file=sys.stderr)
     print(rep.json_sidecar(), file=sys.stderr)

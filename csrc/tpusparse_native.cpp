@@ -1,12 +1,12 @@
 // tpusparse native setup engine — C++ kernels for the host-side (setup-time)
-// sparse work that the TPU does not see: CSR SpMV oracle, Vanek greedy
+// sparse work that the device does not see: CSR SpMV oracle, Vanek greedy
 // aggregation, and two-pass CSR SpGEMM for the Galerkin triple product.
 //
 // Role parity: the reference's setup-time compute runs inside PETSc's C
 // internals (MatAssemblyEnd_SeqAIJ compaction, GAMG's MatPtAP /
 // MatTransposeMatMult SpGEMM at KSPSetUp — exercised from
-// /root/reference/src/main_ksp.cpp:97).  The TPU framework keeps the *apply*
-// path on-device (JAX/Pallas); this library is the native runtime for the
+// the reference's src/main_ksp.cpp:97).  The framework keeps the *apply*
+// path on-device (JAX/XLA); this library is the native runtime for the
 // once-per-matrix setup path, replacing scipy so unstructured AMG setup does
 // not bottleneck on Python.
 //
@@ -176,12 +176,13 @@ void csr_transpose(int64_t n_rows, int64_t n_cols, const int64_t* indptr,
 }
 
 // Reverse Cuthill-McKee ordering — the bandwidth-reduction pass that turns
-// arbitrary-sparsity CSR into the bounded-band world the TPU executors
+// arbitrary-sparsity CSR into the bounded-band world the banded executors
 // need (sparse/bandell.py windows, sparse/dia.py offsets).  Role parity:
 // the reference's patched MatMult_SeqAIJ handles ANY row structure
-// (/root/reference/src/openacc-step1/MatMult_SeqAIJ.patch:19-30); on TPU
-// the equivalent generality comes from reorder + banded executor, because
-// large scattered gathers are the one thing the hardware cannot stream.
+// (its src/openacc-step1/MatMult_SeqAIJ.patch:19-30); here the equivalent
+// generality comes from reorder + banded executor, a design made for an
+// accelerator that could not stream large scattered gathers (not measured
+// on the GPU).
 //
 // Assumes a structurally symmetric pattern (true for the FDM/FEM problem
 // families; callers symmetrize otherwise).  perm[new] = old.  BFS from a

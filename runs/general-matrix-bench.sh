@@ -8,7 +8,7 @@
 # Two records per size:
 #   general_matrix_<N>.json          — production defaults: structure
 #     detection ON (sparse/starlift.py proves the assembled coefficients
-#     form an exact constant-coefficient star and lifts onto the fused
+#     form an exact constant-coefficient star and lifts onto the
 #     structured executor — what a structure-aware Mat type does)
 #   general_matrix_<N>_nodetect.json — -mat_structure_detect 0: the pure
 #     general banded-DIA executor, no structural shortcuts anywhere

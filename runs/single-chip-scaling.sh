@@ -1,8 +1,9 @@
 #!/usr/bin/env bash
 # Parity with the reference's runs/single-node-scaling.pbs: the same 300^3
-# problem at a sweep of parallel widths on one node.  On TPU the sweep is
-# over VIRTUAL device counts (host-emulated mesh) for the communication
-# paths, plus the one real chip for absolute time; the reference swept MPI
+# problem at a sweep of parallel widths on one node.  This script sweeps
+# VIRTUAL device counts (host-emulated mesh), which checks the
+# communication paths but times nothing real; on a 4-GPU host drop the two
+# environment settings and pass --devices 1,2,4.  The reference swept MPI
 # ranks 16,8,4,2,1 on one Titan node (single-node-scaling.pbs:56-67).
 set -euo pipefail
 cd "$(dirname "$0")/.."

@@ -2,7 +2,8 @@
 # Weak scaling (fixed per-device box), the BASELINE.json north star:
 # >= 70% nnz/s efficiency.  Analogue of runs/multiple-node-scaling.pbs
 # (concurrent strong-scaling jobs at 16..1024 ranks) recast for device
-# meshes; run on a real pod this sweeps actual chips.
+# meshes.  The emulated mesh below checks the paths only; on a 4-GPU host
+# drop the two environment settings and pass --devices 1,2,4.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 PER="${PER:-64}"

@@ -50,3 +50,23 @@ def test_driver_bf16_default_end_to_end():
     # the Krylov path, not the answer
     assert abs(rep16.linf_error - rep32.linf_error) < 1e-6
     assert rep16.iters <= rep32.iters + 8
+
+
+def test_cast_coarse_coefs_keeps_fine_level_and_convergence():
+    """cast_coarse_coefs stores only the coarse levels' 27-point
+    coefficient stacks in bf16: the fine level, every vector-facing field
+    and the CG iteration count stay as built."""
+    from tpusparse.amg.hierarchy import cast_coarse_coefs
+
+    op, b, _ = poisson_stencil(Grid3D(18, 18, 18), dtype=np.float32)
+    hier = gamg_setup(op, AMGParams(coarse_eq_limit=30))
+    hier_b = cast_coarse_coefs(hier)
+    assert hier_b.levels[0].op.diag.dtype == jnp.float32
+    for lev in hier_b.levels[1:]:
+        assert lev.op.coef.dtype == jnp.bfloat16
+        assert lev.dinv.dtype == jnp.float32
+    r32 = cg(op.mv, b, rtol=1e-6, maxiter=200, m_mv=lambda r: vcycle(hier, r))
+    rb = cg(op.mv, b, rtol=1e-6, maxiter=200,
+            m_mv=lambda r: vcycle(hier_b, r))
+    assert r32.converged() and rb.converged()
+    assert abs(int(rb.iters) - int(r32.iters)) <= 2

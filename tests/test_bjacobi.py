@@ -159,27 +159,6 @@ def test_structured_line_bjacobi_beats_point_on_anisotropy():
     assert it_line < it_point, (it_line, it_point)
 
 
-def test_bjacobi_rejected_on_padded_layout():
-    import pytest
-
-    from tpusparse.amg import gamg_setup
-    from tpusparse.grid.grid3d import Grid3D
-    from tpusparse.grid.poisson import poisson_stencil
-    from tpusparse.sparse.padded import PaddedStar
-
-    op, _, _ = poisson_stencil(Grid3D(16, 16, 16), dtype=np.float32)
-    with pytest.raises(ValueError, match="x-band"):
-        gamg_setup(PaddedStar.from_star(op), AMGParams(bjacobi_bs=4))
-
-    from tpusparse.bench.driver import solve_poisson
-
-    with pytest.raises(ValueError, match="point-Jacobi"):
-        solve_poisson(
-            16, 16, 16, layout="padded",
-            amg_params=AMGParams(bjacobi_bs=4),
-        )
-
-
 def test_pcr_line_jacobi_exact_vs_dense_inverse():
     """PCR tridiagonal factorization == the dense block inverse on x-line
     blocks (the bs=nx case whose dense form is O(n*bs) memory — ~32 GB at

@@ -86,19 +86,6 @@ def test_unstructured_lu():
     assert res.reason > 0
 
 
-@pytest.mark.slow
-def test_padded_layout_degrades_with_warning():
-    """The padded/fused layout keeps pad columns at every level — lu
-    degrades to jacobi with a warning instead of building a giant dense."""
-    from tpusparse.sparse.padded import PaddedStar
-
-    _, op, _, _ = _op(16, np.float32)
-    p = PaddedStar.from_star(op)
-    with pytest.warns(UserWarning, match="padded"):
-        hier = gamg_setup(p, AMGParams(coarse_solve="lu"))
-    assert hier.levels[-1].coarse_inv is None
-
-
 def test_option_wiring():
     """-mg_coarse_pc_type lu reaches AMGParams; unknown values degrade."""
     from tpusparse.config import load_options

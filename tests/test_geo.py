@@ -272,8 +272,8 @@ def test_griddia_matches_flat_dia():
 def test_geo_hierarchy_with_griddia_fine_level_solves():
     """GridDIA (3-D-view container) as the FINE level solves identically —
     it is a correct, tested container even though production keeps the
-    flat form (measured slower on the v5e; small-shape coarse instances
-    also trip an XLA composition miscompile — sparse/griddia.py notes)."""
+    flat form (small-shape coarse instances also trip an XLA composition
+    miscompile — sparse/griddia.py notes)."""
     from tpusparse.sparse.dia import DIA
     from tpusparse.sparse.griddia import GridDIA, host_grid_view
 

@@ -1,7 +1,7 @@
 """Explicit shard_map halo-exchange SpMV vs the GSPMD path and single-device.
 
 Exercised on the 8-device virtual CPU mesh (tests/conftest.py) — the same
-communication pattern that rides ICI on a real pod."""
+communication pattern that runs between GPUs."""
 
 import jax
 import jax.numpy as jnp

@@ -128,9 +128,9 @@ def test_weak_record_carries_hlo_validation():
 
 
 def test_async_start_forms_counted_once():
-    """TPU post-scheduling HLO emits async `X-start`/`X-done` pairs; the
-    parser must (a) see them at all and (b) count the result member only
-    — not operand+result — and skip the `-done` repeat."""
+    """Accelerator post-scheduling HLO emits async `X-start`/`X-done`
+    pairs; the parser must (a) see them at all and (b) count the result member
+    only — not operand+result — and skip the `-done` repeat."""
     txt = "\n".join([
         "  %ar = f32[256]{0} all-reduce-start(f32[256]{0} %p), to_apply=%add",
         "  %ard = f32[256]{0} all-reduce-done(f32[256]{0} %ar)",

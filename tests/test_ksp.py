@@ -159,11 +159,9 @@ def test_requires_operator_and_solve():
 
 
 @pytest.mark.slow
-def test_reuse_swap_on_padded_layout():
-    """Review finding: KSPSetReusePreconditioner + operator swap on the
-    PADDED layout used to leave a padded hierarchy with an unpadded
-    operator twin (shape crash on the next solve).  The swapped twin must
-    be re-padded when compatible."""
+def test_reuse_swap_keeps_preconditioner():
+    """KSPSetReusePreconditioner + operator swap: the kept hierarchy
+    preconditions the swapped-in (scaled, same-grid) operator."""
     import numpy as np
 
     from tpusparse.grid.poisson import poisson_stencil
@@ -172,11 +170,11 @@ def test_reuse_swap_on_padded_layout():
 
     g = Grid3D(16, 16, 16)
     op, b, _ = poisson_stencil(g)
-    ksp = KSP(rtol=1e-7, layout="padded")
+    ksp = KSP(rtol=1e-7)
     ksp.set_operators(op)
     r1 = ksp.solve(b)
     assert r1.converged
-    # swap in a scaled twin (same grid): PC kept, operator re-padded
+    # swap in a scaled twin (same grid): PC kept
     op_scaled = jax.tree.map(
         lambda x: 1.5 * x if hasattr(x, "dtype") and x.dtype.kind == "f"
         else x, op,
@@ -191,9 +189,8 @@ def test_reuse_swap_on_padded_layout():
 
 @pytest.mark.slow
 def test_no_reuse_swap_invalidates_mat_solve_twin():
-    """Review finding: reuse_preconditioner=False + operator swap must not
-    leave mat_solve preconditioning the new operator with the OLD
-    operator's plain-twin hierarchy."""
+    """reuse_preconditioner=False + operator swap must not leave mat_solve
+    preconditioning the new operator with the OLD operator's hierarchy."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -212,28 +209,9 @@ def test_no_reuse_swap_invalidates_mat_solve_twin():
         else x, op,
     )
     ksp.set_operators(op_scaled)
-    assert ksp._pc_state_plain is None  # twin dropped with the PC
+    assert ksp._pc_state is None  # PC dropped with the operator
     res2 = ksp.mat_solve(jnp.stack([(3.0 * b).reshape(-1)]))
     assert bool(res2.reason[0] > 0)
     np.testing.assert_allclose(
         np.asarray(res2.x[0]), np.asarray(res1.x[0]), rtol=1e-6, atol=1e-8
     )
-
-
-def test_padded_layout_with_plain_only_params_errors():
-    """Review finding: the KSP object must give the CLI driver's error for
-    layout='padded' + point-Jacobi-incompatible params, not a silent
-    fallback."""
-    import pytest
-
-    from tpusparse.amg import AMGParams
-    from tpusparse.grid.poisson import poisson_stencil
-
-    op, b, _ = poisson_stencil(Grid3D(16, 16, 16))
-    ksp = KSP(
-        rtol=1e-7, layout="padded",
-        amg_params=AMGParams(coarse_solve="lu"),
-    )
-    ksp.set_operators(op)
-    with pytest.raises(ValueError, match="point-Jacobi"):
-        ksp.solve(b)

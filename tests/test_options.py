@@ -150,3 +150,21 @@ def test_per_level_smoother_specs():
 
     with _pytest.raises(ValueError, match="per-level smoother"):
         load_options(["-mg_levels_1_ksp_type", "ilu"])
+
+
+@pytest.mark.parametrize("value", ["padded", "plain", "auto"])
+def test_removed_layout_option_is_rejected(value):
+    """-layout chose the padded kernel layout, which no longer exists:
+    setting it is an error that says so, not a silent no-op."""
+    with pytest.raises(ValueError, match="layout.*removed"):
+        load_options(["-layout", value])
+
+
+def test_removed_layout_keyword_is_rejected():
+    from tpusparse import KSP
+    from tpusparse.bench.driver import solve_poisson
+
+    with pytest.raises(TypeError, match="layout"):
+        KSP(layout="padded")
+    with pytest.raises(TypeError, match="layout"):
+        solve_poisson(6, layout="padded")

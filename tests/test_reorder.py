@@ -2,8 +2,8 @@
 banded-ELL executor (round-4 verdict item 3).
 
 The reference's patched kernel is general-CSR SpMV — any row structure
-(/root/reference/src/openacc-step1/MatMult_SeqAIJ.patch:19-30).  The TPU
-equivalent: ``sparse/reorder.py`` RCM bounds the graph bandwidth,
+(its src/openacc-step1/MatMult_SeqAIJ.patch:19-30).  The equivalent here:
+``sparse/reorder.py`` RCM bounds the graph bandwidth,
 ``sparse/bandell.py`` executes bounded-bandwidth CSR with window-local
 gathers only, and ``ksp.KSP`` carries the permutation (solve in permuted
 space, unpermute x).  The acceptance case from the verdict: a RANDOMLY
@@ -211,9 +211,9 @@ def test_options_mat_reorder():
 
 @pytest.mark.slow
 def test_chunked_solve_matches_jitted():
-    """The gather-safe chunked driver (KSP._solve_chunked — the >cap
-    BandedELL route on real TPUs) produces the same solution as the
-    jitted while_loop path."""
+    """The host-loop chunked driver (KSP._solve_chunked, library code kept
+    beside cg_hostloop) produces the same solution as the jitted
+    while_loop path."""
     a, b, _e, ap, bp, _ep, _p = _permuted_poisson(n=10)
     k = KSP(rtol=1e-8, atol=1e-12, precision="mixed")
     k.set_operators(ap)

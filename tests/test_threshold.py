@@ -194,98 +194,3 @@ def test_sharded_hierarchy_shards_fop():
     np.testing.assert_allclose(
         np.asarray(res0.x), np.asarray(res1.x), atol=1e-9
     )
-
-
-@pytest.mark.slow
-def test_fused_cycle_supports_filtered_hierarchy():
-    """-pc_gamg_threshold > 0 on the padded path keeps the FUSED fine level
-    (round-4 verdict item 6): fused7's P-smoothing passes take per-axis
-    filtered leg overrides (flegs), so the anisotropic family no longer
-    drops to the ~40-pass XLA cycle.  Gate: fused == standard cycle, CG
-    iteration parity."""
-    import jax
-
-    from tpusparse.amg.fused_cycle import (
-        fused_fine_supported,
-        preflight,
-        vcycle_fused,
-        vcycle_fused_dots,
-    )
-    from tpusparse.sparse.padded import PaddedStar, pad_field
-
-    n = 18
-    grid = Grid3D(n, n, n, lz=0.1)  # strong z coupling
-    op, b, _e = poisson_stencil(grid, dtype=np.float32)
-    sched = threshold_schedule(op, 0.05)
-    assert sched is not None and sched[0] == (3, 1, 1)
-    pop = PaddedStar.from_star(op, backend="xla")
-    hier = gamg_setup(
-        pop, AMGParams(coarse_eq_limit=40, threshold=0.05),
-        factors_schedule=sched,
-    )
-    assert hier.levels[0].transfer.inner.fop is not None
-    assert fused_fine_supported(hier)       # flegs path accepts the filter
-    assert preflight(hier, with_dots=True)
-
-    b_p = pad_field(b.astype(jnp.float32))
-    z_ref = vcycle(hier, b_p)
-    z_fused = vcycle_fused(hier, b_p)
-    ref = np.asarray(z_ref)
-    np.testing.assert_allclose(
-        np.asarray(z_fused), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max()
-    )
-    z2, rz, rr = vcycle_fused_dots(hier, b_p)
-    np.testing.assert_allclose(np.asarray(z2), ref, rtol=1e-4,
-                               atol=1e-4 * np.abs(ref).max())
-
-    r_ref = cg(pop.mv, b_p, rtol=1e-8, maxiter=200,
-               m_mv=lambda r: vcycle(hier, r))
-    r_fused = cg(pop.mv, b_p, rtol=1e-8, maxiter=200,
-                 m_mv=lambda r: vcycle_fused(hier, r))
-    assert r_ref.converged() and r_fused.converged()
-    assert abs(int(r_ref.iters) - int(r_fused.iters)) <= 1
-
-
-@pytest.mark.slow
-def test_fused7_flegs_interpret_matches_xla():
-    """The Pallas kernels' flegs overrides == the XLA reference with a
-    filtered operator, for every P-smoothing-bearing mode (interpret)."""
-    import dataclasses
-
-    from tpusparse.kernels.fused7 import fused7_call, fused7_xla
-    from tpusparse.sparse.padded import PaddedStar, pad_field
-
-    shape = (12, 12, 12)
-    grid = Grid3D(*shape[::-1], lz=0.1)
-    op, b, _e = poisson_stencil(grid, dtype=np.float32)
-    pop = PaddedStar.from_star(op, backend="interpret")
-    fop = dataclasses.replace(pop, cx=jnp.zeros((), jnp.float32),
-                              cy=jnp.zeros((), jnp.float32))
-    flegs = (fop.cx, fop.cy, fop.cz)
-    import jax
-
-    key = jax.random.PRNGKey(3)
-    kx, kd = jax.random.split(key)
-    x = pad_field(jax.random.normal(kx, shape, jnp.float32))
-    d = pad_field(jax.random.normal(kd, shape, jnp.float32))
-    b_p = pad_field(b.astype(jnp.float32))
-    G = jnp.float32(0.7); AD = jnp.float32(0.3)
-    S0 = jnp.float32(1.2); GW = jnp.float32(0.25); G2 = jnp.float32(0.4)
-    for mode in ("restrict", "prolong", "descent", "ascent",
-                 "descent1", "ascent1", "descentu", "ascent_rz"):
-        got = fused7_call(
-            mode, pop.diag, pop.cx, pop.cy, pop.cz, x, b_p, d, G, AD, S0,
-            shape=shape, pinned=pop.pinned, interpret=True, gw=GW, g2=G2,
-            flegs=flegs,
-        )
-        want = fused7_xla(mode, pop, x, b_p, d, G, AD, S0, gw=GW, g2=G2,
-                          fop=fop)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        for g_, w_ in zip(got, want):
-            w_np = np.asarray(w_)
-            scale = float(np.max(np.abs(w_np))) if w_np.size else 1.0
-            np.testing.assert_allclose(
-                np.asarray(g_), w_np, rtol=1e-5,
-                atol=max(1e-3, 1e-6 * scale), err_msg=mode,
-            )

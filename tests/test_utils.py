@@ -77,8 +77,9 @@ def test_scaling_efficiency_math():
 
 
 def test_weak_scaling_projection_model():
-    """comm_model: exact halo volumes from the sharding layout + a
-    monotone, <=1 projected efficiency anchored at 1.0 for one device."""
+    """comm_model: exact halo volumes from the sharding layout; the
+    projected efficiency is 1.0 for one device and "not measured" where it
+    would need an unmeasured link rate."""
     from tpusparse.bench.scaling import MODEL, ScalingPoint, comm_model
 
     pts = [
@@ -95,12 +96,13 @@ def test_weak_scaling_projection_model():
     # 2 devices: (pz, py) = (2, 1): z-faces only, 2 planes of 64*64 f32
     want = 2 * 64 * 64 * 4 * MODEL["fine_applies_per_iter"]
     assert proj[1]["halo_bytes_per_iter"] == want
-    # 8 devices (4, 2): both axes exchange; volume grows, efficiency drops
+    # 8 devices (4, 2): both axes exchange, so the volume grows
     assert proj[2]["halo_bytes_per_iter"] > proj[1]["halo_bytes_per_iter"]
-    assert 0.0 < proj[2]["projected_efficiency"] <= proj[1][
-        "projected_efficiency"] < 1.0
-    # the north-star gate is satisfiable under the model at this box size
-    assert proj[2]["projected_efficiency"] > 0.7
+    # seam: one ring all-reduce of the n/27 coarse field
+    n27 = 64 * 128 * 256 // MODEL["coarsen_ratio"]
+    assert proj[2]["coarse_seam_bytes_per_iter"] == int(n27 * 4 * 2 * 7 / 8)
+    assert [p["projected_efficiency"] for p in proj[1:]] == [
+        "not measured", "not measured"]
 
 
 @pytest.mark.slow

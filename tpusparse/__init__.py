@@ -1,15 +1,15 @@
-"""tpusparse — a TPU-native sparse linear-algebra framework.
+"""tpusparse — a sparse linear-algebra framework in JAX for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA re-design of the capability surface of
 olcf/PETSC-OpenACC (3D Poisson + CG + smoothed-aggregation AMG with
 GPU-accelerated SpMV): structured-grid stencil operators, padded-ELL /
 CSR / COO sparse containers, Krylov solvers, an algebraic-multigrid
 preconditioner, and multi-chip distribution over a ``jax.sharding.Mesh``.
 
-Design stance (vs the reference): the reference patches a CPU library's
-CSR SpMV kernel with OpenACC and hand-manages device residency
-(``src/openacc-step{1..4}/*.patch``). On TPU everything lives in HBM under
-XLA management and the whole solve is a single jitted functional program;
+Design stance (vs the reference): the reference patches a CPU library's CSR
+SpMV kernel with OpenACC and hand-manages device residency
+(``src/openacc-step{1..4}/*.patch``). Here everything lives in device memory
+under XLA management and the whole solve is a single jitted functional program;
 the reference's four optimization "steps" (persistent device data, async
 transfer, overlap, stream pipelining) are structural properties here.
 """

@@ -5,10 +5,11 @@ MatPtAP) inside ``KSPSetUp`` (``/root/reference/src/main_ksp.cpp:97``) —
 single-process host code inside PETSc.  The repo's greedy/Vanek path
 reproduces that capability but walks the graph on the HOST (scipy / the
 C++ engine): minutes at 300^3-scale inputs, and its FactoredTransfer
-gathers at fine-level size inside the solver loop — which the deployed
-libtpu crashes on above ~2M rows.  This module is the TPU-native answer
-for matrices that defeat ``infer_grid3d`` (periodic wrap bands, high-order
-1-D stencils, irregular offset sets): EVERY setup stage runs on device as
+gathers at fine-level size inside the solver loop (on the accelerator this
+was first built for, those failed above ~2M rows; an inherited limit, not
+measured on the GPU).  This module is the gather-free answer for matrices
+that defeat ``infer_grid3d`` (periodic wrap bands, high-order 1-D
+stencils, irregular offset sets): EVERY setup stage runs on device as
 static-shape XLA programs, and the resulting cycle is gather/scatter-free.
 
 Design (all offsets static Python ints — they shape the programs):
@@ -16,8 +17,8 @@ Design (all offsets static Python ints — they shape the programs):
 * **Aggregation = contiguous index segments of size s.**  For banded
   matrices, index-adjacent rows are graph-adjacent (bounded offsets =
   index locality), so segments are connected aggregates.  Transfers
-  become ``reshape``/``repeat`` — no gathers ANYWHERE in the V-cycle, so
-  the cycle runs at any size on the deployed libtpu.  This is the 1-D
+  become ``reshape``/``repeat`` — no gathers ANYWHERE in the V-cycle.
+  This is the 1-D
   analogue of the structured path's geometric block aggregation.
 
 * **Smoothed prolongator in segment-banded form.**  P = (I - w D^-1 A) T

@@ -71,10 +71,9 @@ def aggregate_sizes(fine_shape, factor=3) -> np.ndarray:
 def _agg_matrix(n: int, factor: int, dtype) -> np.ndarray:
     """(n, ceil(n/factor)) 0/1 membership matrix: S[i, i // factor] = 1.
 
-    The T-action along one axis is a contraction with S — on TPU that is an
-    MXU matmul at full throughput, where the naive ``jnp.repeat`` /
-    reshape-and-reduce formulation forces tile relayouts that dominated the
-    whole V-cycle (measured ~30 ms of a 39 ms cycle at 300^3).
+    The T-action along one axis is a contraction with S, which XLA lowers
+    to a matrix product; the ``jnp.repeat`` / reshape-and-reduce forms
+    (``_repeat_crop``, ``_block_sum``) are kept as the test oracles.
     """
     nc = cdiv(n, factor)
     s = np.zeros((n, nc), dtype)
@@ -108,6 +107,29 @@ def _block_sum(r: jax.Array, c_shape, factor: int) -> jax.Array:
     return x.sum(axis=(1, 3, 5))
 
 
+# The T / T^T contractions below are 0/1 block sums bound by memory
+# bandwidth.  A float32 dot at default precision may run in TF32 on a GPU
+# (about three decimal digits), which buys no speed here, so every transfer
+# contraction asks for full precision.
+PRECISION = lax.Precision.HIGHEST
+
+
+def expand3(e, sz, sy, sx, precision=PRECISION):
+    """out[z, y, x] = sum sz[z, c] sy[y, d] sx[x, e] e[c, d, e]: the
+    coarse -> fine index action of T as three axis contractions."""
+    x = jnp.einsum("zc,cde->zde", sz, e, precision=precision)
+    x = jnp.einsum("yd,zde->zye", sy, x, precision=precision)
+    return jnp.einsum("xe,zye->zyx", sx, x, precision=precision)
+
+
+def block_sum3(r, sz, sy, sx, precision=PRECISION):
+    """out[c, d, e] = sum sz[z, c] sy[y, d] sx[x, e] r[z, y, x]: the
+    fine -> coarse index action of T^T (the transpose of ``expand3``)."""
+    x = jnp.einsum("zyx,zc->cyx", r, sz, precision=precision)
+    x = jnp.einsum("cyx,yd->cdx", x, sy, precision=precision)
+    return jnp.einsum("cdx,xe->cde", x, sx, precision=precision)
+
+
 @partial(
     jax.tree_util.register_dataclass,
     data_fields=["omega", "tnorm", "sz", "sy", "sx", "fop"],
@@ -119,7 +141,7 @@ class StructuredTransfer:
 
     ``tnorm`` is the coarse-shaped field 1/sqrt(|agg|); ``omega`` the
     prolongator-smoothing damping; ``sz/sy/sx`` the per-axis aggregation
-    matrices (``_agg_matrix``) that carry the T-action as MXU contractions.
+    matrices (``_agg_matrix``) that carry the T-action as contractions.
     ``fine_op``/``dinv`` live in the fine level and are passed per call
     (they are needed for the smoothing apply).
     """
@@ -159,19 +181,13 @@ class StructuredTransfer:
         return coarse_shape(self.fine_shape, self.factor)
 
     def t_apply(self, e_c: jax.Array) -> jax.Array:
-        """T e_c: normalized piecewise-constant interpolation, as three MXU
-        contractions (coarse -> fine)."""
-        x = e_c * self.tnorm
-        x = jnp.einsum("zc,cde->zde", self.sz, x)
-        x = jnp.einsum("yd,zde->zye", self.sy, x)
-        return jnp.einsum("xe,zye->zyx", self.sx, x)
+        """T e_c: normalized piecewise-constant interpolation, as three
+        axis contractions (coarse -> fine)."""
+        return expand3(e_c * self.tnorm, self.sz, self.sy, self.sx)
 
     def tT_apply(self, r: jax.Array) -> jax.Array:
-        """T^T r: block sums as three MXU contractions (fine -> coarse)."""
-        x = jnp.einsum("zyx,zc->cyx", r, self.sz)
-        x = jnp.einsum("cyx,yd->cdx", x, self.sy)
-        x = jnp.einsum("cdx,xe->cde", x, self.sx)
-        return x * self.tnorm
+        """T^T r: block sums as three axis contractions (fine -> coarse)."""
+        return block_sum3(r, self.sz, self.sy, self.sx) * self.tnorm
 
     def prolong(self, fine_op, dinv: jax.Array, e_c: jax.Array) -> jax.Array:
         """x_f = P e_c = (I - omega D^{-1} A) T e_c."""

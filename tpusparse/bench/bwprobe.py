@@ -1,4 +1,4 @@
-"""Raw HBM bandwidth probes — what is this chip's real elementwise ceiling?
+"""Raw device-memory bandwidth probes — the GPU's real elementwise ceiling.
 
 Run: python -m tpusparse.bench.bwprobe
 """
@@ -18,9 +18,9 @@ def timeit(name, fn, *args, reps=30, bytes_=None):
             0, reps, lambda i, v: fn(*a[:-1], v), a[-1]
         )
 
-    float(jnp.sum(run(*args)))
+    jax.block_until_ready(run(*args))
     t0 = time.perf_counter()
-    float(jnp.sum(run(*args)))
+    jax.block_until_ready(run(*args))
     dt = (time.perf_counter() - t0) / reps
     gbs = (bytes_ / dt / 1e9) if bytes_ else float("nan")
     print(f"{name:44s} {dt * 1e3:8.3f} ms   {gbs:7.1f} GB/s")
@@ -28,6 +28,10 @@ def timeit(name, fn, *args, reps=30, bytes_=None):
 
 
 def main():
+    from tpusparse.bench.device import require_gpu
+
+    dev = require_gpu("bwprobe")
+    print(f"# {dev['kind']}")
     for mb in (64, 143, 512):
         nrows = mb * 1024 * 1024 // (4 * 512)
         a = jnp.ones((nrows, 512), jnp.float32)
@@ -41,8 +45,8 @@ def main():
         timeit(f"reduce sum ({mb} MB, 1-pass)",
                lambda x: x * 0 + jnp.sum(x), a, bytes_=sz)
 
-    # 3-D layouts like the padded solver fields
-    for shape in ((306, 304, 384), (300, 300, 300)):
+    # the solver's 300^3 field
+    for shape in ((300, 300, 300),):
         a = jnp.ones(shape, jnp.float32)
         sz = a.size * 4
         timeit(f"axpy 3-D {shape} (3-pass)",

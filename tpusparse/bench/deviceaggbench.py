@@ -124,10 +124,10 @@ def main() -> None:
 
     import jax
 
+    from tpusparse.utils.compile_cache import enable_compile_cache
+
     jax.config.update("jax_enable_x64", True)
-    jax.config.update(
-        "jax_compilation_cache_dir", "/root/.cache/tpusparse_xla"
-    )
+    enable_compile_cache()
     import numpy as np
 
     from tpusparse.amg.hierarchy import AMGParams

@@ -1,11 +1,12 @@
-"""Per-component profile of one inner CG+GAMG iteration — the roofline
-ledger behind the single-chip solve number.
+"""Per-component profile of one inner CG+GAMG iteration — the ledger
+behind the single-device solve number.
 
-Times each piece of the production hot path (fused padded layout,
-chebyshev-degree-2 smoother — the bench.py configuration) as chained
-in-jit applications on the real chip, so the 300^3 solve time can be
-attributed pass-by-pass: fine-level kernels (descent/ascent/mv), transfer
-einsums, coarse hierarchy, and the CG vector shell.
+Times each piece of the solve's hot path (the plain XLA layout, chebyshev
+degree-2 smoother — the bench.py configuration) as chained in-jit
+applications on the GPU, so the 300^3 solve time can be attributed
+pass-by-pass: the fine-level mv, the transfer contractions, the coarse
+hierarchy, the whole V-cycle and the CG vector shell.  Host-clock times of
+chained programs; a profiler trace is the finer source.
 
 Run: python -m tpusparse.bench.itprof [N] [reps]
 """
@@ -31,9 +32,9 @@ def timeit(name, fn, *args, reps=20, bytes_=None):
 
         return jax.lax.fori_loop(0, reps, body, a[-1])
 
-    float(jnp.sum(run(*args)))  # compile + warm
+    jax.block_until_ready(run(*args))  # compile + warm
     t0 = time.perf_counter()
-    float(jnp.sum(run(*args)))
+    jax.block_until_ready(run(*args))
     dt = (time.perf_counter() - t0) / reps
     gbs = (bytes_ / dt / 1e9) if bytes_ else float("nan")
     print(f"{name:34s} {dt * 1e3:8.3f} ms   {gbs:7.1f} GB/s-effective")
@@ -41,94 +42,55 @@ def timeit(name, fn, *args, reps=20, bytes_=None):
 
 
 def main():
+    from tpusparse.bench.device import require_gpu
+
+    dev = require_gpu("itprof")
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 300
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 20
 
-    from tpusparse.amg.fused_cycle import preflight, vcycle_fused
+    import numpy as np
+
     from tpusparse.amg.hierarchy import (
         AMGParams,
-        cast_coarse_coefs,
         gamg_setup_compiled,
         vcycle,
     )
     from tpusparse.grid.grid3d import Grid3D
     from tpusparse.grid.poisson import poisson_stencil
-    from tpusparse.sparse.padded import PaddedStar, pad_field
-
-    import numpy as np
 
     grid = Grid3D(n, n, n)
-    op32, b, _ = poisson_stencil(grid, dtype=np.float32)
-    op = PaddedStar.from_star(op32)
-    b_p = pad_field(b.astype(jnp.float32))
+    op, b, _ = poisson_stencil(grid, dtype=np.float32)
+    b = b.astype(jnp.float32)
     hier = gamg_setup_compiled(op, AMGParams())
-    hier = cast_coarse_coefs(hier)
-    assert preflight(hier), "fused kernels must compile for this shape"
     jax.block_until_ready(hier.levels[-1].rho)
 
-    field = n * n * n * 4  # one true-domain f32 field in bytes
-    print(f"# {n}^3, one f32 field = {field / 1e6:.1f} MB, reps={reps}")
+    field = n * n * n * 4  # one f32 field in bytes
+    print(f"# {n}^3 on {dev['kind']}, one f32 field ="
+          f" {field / 1e6:.1f} MB, reps={reps}")
 
     # --- ceilings -----------------------------------------------------------
     timeit("axpy (3-pass ceiling probe)",
-           lambda a, x: a + 1.5 * x, b_p, b_p, reps=reps, bytes_=3 * field)
+           lambda a, x: a + 1.5 * x, b, b, reps=reps, bytes_=3 * field)
     timeit("dot <x,x> (1-pass probe)",
-           lambda x: jnp.vdot(x.reshape(-1), x.reshape(-1)) * jnp.ones(())
-           + x[:1, :1, :1].sum() * 0 + x * 0 + x,  # keep field output shape
-           b_p, reps=reps, bytes_=field)
+           lambda x: jnp.vdot(x.reshape(-1), x.reshape(-1)) + x,
+           b, reps=reps, bytes_=field)
 
-    # --- fine-level kernels --------------------------------------------------
-    timeit("mv (pallas resident, 3-pass)",
-           lambda o, x: o.mv(x), op, b_p, reps=reps, bytes_=3 * field)
-    timeit("mvdot (3-pass + dot)",
-           lambda o, x: o.mv_dot(x)[0], op, b_p, reps=reps, bytes_=3 * field)
-
-    from tpusparse.amg.fused_cycle import _fine_scalars
-    from tpusparse.kernels.fused7 import fused7_call
-
-    lev = hier.levels[0]
-    tr = lev.transfer
-    s0, ad, g = _fine_scalars(hier, lev)
-    gw = tr.inner.omega.astype(jnp.float32)
-    shape = op.true_shape
-
-    def descent(o, x):
-        x1, s = fused7_call(
-            "descent", o.diag, o.cx, o.cy, o.cz, x, x, x, g, ad, s0,
-            shape=shape, pinned=o.pinned, gw=gw, g2=g,
-        )
-        return x1 + s  # single field dep
-
-    # descent: reads b,diag once (halo sharing), writes x1,s — exactly 4
-    timeit("descent kernel (4-pass)", descent, op, b_p,
-           reps=reps, bytes_=4 * field)
-
-    def ascent(o, x):
-        return fused7_call(
-            "ascent", o.diag, o.cx, o.cy, o.cz, x, x, x, s0, ad, s0,
-            shape=shape, pinned=o.pinned, gw=gw, g2=g,
-        )
-
-    # ascent: reads t,diag,b,x1 once, writes x4 — exactly 5
-    timeit("ascent kernel (5-pass)", ascent, op, b_p,
-           reps=reps, bytes_=5 * field)
-
-    # --- transfers (restrict + prolong chained: 2 fine passes + coarse) ------
-    c_shape = tr.c_shape
-    e_c = jnp.ones(c_shape, jnp.float32)
-    timeit("tT + t einsums (2 fine passes)",
-           lambda t, s: t.t_apply_padded(t.tT_apply_padded(s)),
-           tr, b_p, reps=reps, bytes_=2 * field)
+    # --- fine level ---------------------------------------------------------
+    timeit("mv (XLA, 3-pass)",
+           lambda o, x: o.mv(x), op, b, reps=reps, bytes_=3 * field)
+    tr = hier.levels[0].transfer
+    timeit("tT + t contractions (2 fine passes)",
+           lambda t, s: t.t_apply(t.tT_apply(s)), tr, b, reps=reps,
+           bytes_=2 * field)
 
     # --- coarse hierarchy (levels >= 1 only) ---------------------------------
+    e_c = jnp.ones(tr.c_shape, jnp.float32)
     timeit("coarse vcycle (levels 1+)",
-           lambda h, r: vcycle(h, r, level=1), hier, e_c, reps=reps,
-           bytes_=None)
+           lambda h, r: vcycle(h, r, level=1), hier, e_c, reps=reps)
 
     # --- whole preconditioner -----------------------------------------------
-    timeit("vcycle_fused (full M^-1 r)",
-           lambda h, r: vcycle_fused(h, r), hier, b_p, reps=reps,
-           bytes_=None)
+    timeit("vcycle (full M^-1 r)",
+           lambda h, r: vcycle(h, r), hier, b, reps=reps)
 
     # --- one full inner CG iteration (production body) -----------------------
     def cg_iter(o, h, st):
@@ -137,7 +99,7 @@ def main():
         alpha = rz / jnp.vdot(p.reshape(-1), ap.reshape(-1))
         x = x + alpha * p
         r = r - alpha * ap
-        z = vcycle_fused(h, r)
+        z = vcycle(h, r)
         rz_new = jnp.vdot(r.reshape(-1), z.reshape(-1))
         beta = rz_new / rz
         p = z + beta * p
@@ -147,77 +109,15 @@ def main():
     @jax.jit
     def run_cg(o, h, b):
         st = (b, b, b, b, jnp.float32(1.0))
-
-        def body(i, st):
-            return cg_iter(o, h, st)
-
-        return jax.lax.fori_loop(0, reps, body, st)[0]
-
-    float(jnp.sum(run_cg(op, hier, b_p)))
-    t0 = time.perf_counter()
-    float(jnp.sum(run_cg(op, hier, b_p)))
-    dt = (time.perf_counter() - t0) / reps
-    print(f"{'FULL CG+AMG iteration':34s} {dt * 1e3:8.3f} ms")
-
-    # --- full-fusion CG kernels (round 5) -------------------------------------
-    from tpusparse.amg.fused_cycle import preflight as _pf
-    from tpusparse.amg.fused_cycle import vcycle_fused_rupdate
-
-    if not _pf(hier, with_cg=True):
-        print("# full-fusion kernels unavailable for this shape")
-        return
-
-    al = jnp.float32(0.37)
-    be = jnp.float32(0.61)
-
-    # cgmv: reads z,p,x,diag (4) writes ap,p',x' (3) = 7 passes + dot
-    timeit("cgmv kernel (7-pass + dot)",
-           lambda o, x: o.cgmv(x, x, x, al, be)[0], op, b_p,
-           reps=reps, bytes_=7 * field)
-
-    def descentu(o, x):
-        x1, s, rn, rr = fused7_call(
-            "descentu", o.diag, o.cx, o.cy, o.cz, x, x, x, g, ad, s0,
-            shape=shape, pinned=o.pinned, gw=gw, g2=al,
-        )
-        return x1 + s + rn
-
-    # descentu: reads r,ap,diag (3) writes x1,s,r' (3) = 6 passes + dot
-    timeit("descentu kernel (6-pass + dot)", descentu, op, b_p,
-           reps=reps, bytes_=6 * field)
-
-    def ascent_rz(o, x):
-        return fused7_call(
-            "ascent_rz", o.diag, o.cx, o.cy, o.cz, x, x, x, s0, ad, s0,
-            shape=shape, pinned=o.pinned, gw=gw, g2=g,
+        return jax.lax.fori_loop(
+            0, reps, lambda i, st: cg_iter(o, h, st), st
         )[0]
 
-    timeit("ascent_rz kernel (5-pass + dot)", ascent_rz, op, b_p,
-           reps=reps, bytes_=5 * field)
-
-    def cg_iter_fused(o, h, st):
-        x, r, z, p, rz, a_prev, beta = st
-        ap, p, x, pap = o.cgmv(z, p, x, a_prev, beta)
-        alpha = rz / pap
-        z, r, rz_new, rr = vcycle_fused_rupdate(h, r, ap, alpha)
-        beta = rz_new / rz
-        return (x, r, z, p, rz_new + 0 * jnp.sqrt(rr), alpha, beta)
-
-    @jax.jit
-    def run_cg_fused(o, h, b):
-        st = (b, b, b, b, jnp.float32(1.0), jnp.float32(0.0),
-              jnp.float32(0.0))
-
-        def body(i, st):
-            return cg_iter_fused(o, h, st)
-
-        return jax.lax.fori_loop(0, reps, body, st)[0]
-
-    float(jnp.sum(run_cg_fused(op, hier, b_p)))
+    jax.block_until_ready(run_cg(op, hier, b))
     t0 = time.perf_counter()
-    float(jnp.sum(run_cg_fused(op, hier, b_p)))
+    jax.block_until_ready(run_cg(op, hier, b))
     dt = (time.perf_counter() - t0) / reps
-    print(f"{'FULL fused-CG iteration':34s} {dt * 1e3:8.3f} ms")
+    print(f"{'FULL CG+AMG iteration':34s} {dt * 1e3:8.3f} ms")
 
 
 if __name__ == "__main__":

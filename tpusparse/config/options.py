@@ -84,10 +84,10 @@ class Options:
     mg_levels_ksp_max_it: int = 2          # sweeps / chebyshev degree
     mg_levels_pc_type: str = "bjacobi"
     mg_levels_sub_pc_type: str = "jacobi"
-    # real PCBJACOBI block SIZE (TPU extension: PETSc's -pc_bjacobi_blocks
-    # gives a COUNT; uniform batched blocks want a size).  0 = the
-    # one-block-per-process point degeneracy (the reference's own shape).
-    # Needs the unstructured (assembled-CSR) path.
+    # real PCBJACOBI block SIZE (tpusparse extension: PETSc's
+    # -pc_bjacobi_blocks gives a COUNT; uniform batched blocks want a size).
+    # 0 = the one-block-per-process point degeneracy (the reference's own
+    # shape).  Needs the unstructured (assembled-CSR) path.
     pc_bjacobi_bs: int = 0
     mg_levels_ksp_richardson_scale: float = 1.0
     pc_mg_cycle_type: str = "v"            # v | w (amg/hierarchy.vcycle gamma)
@@ -95,7 +95,7 @@ class Options:
     mg_coarse_pc_type: str = "bjacobi"
     mg_coarse_sub_pc_type: str = "jacobi"
 
-    # TPU-framework extensions (no PETSc counterpart)
+    # tpusparse extensions (no PETSc counterpart)
     # aij-path aggregation: "auto" (geometric when the sparsity pattern
     # reveals a 3-D grid — amg/geo.py — else greedy Vanek, rerouted to
     # "banded" when the input is device-assembled or too large for the
@@ -124,7 +124,6 @@ class Options:
     devices: int = 1                # mesh size (z-sharded)
     precision: str = "mixed"        # mixed | tf | f64 | f32 (bench/driver.py)
     pc_dtype: str = "f32"           # f32 | bf16: V-cycle storage dtype
-    layout: str = "auto"            # auto | padded | plain (sparse/padded.py)
     profile: str = ""               # JAX profiler trace dir ('' = off)
     # -f <file>: solve a system READ FROM A FILE instead of assembling the
     # Poisson problem — PETSc KSP tutorial ex10's flag (MatLoad/VecLoad
@@ -276,6 +275,12 @@ _ACCEPTED_NOOPS = {
     "mg_levels_sub_ksp_max_it",
     "config",
 }
+# option names that no longer exist and would otherwise be ignored with a
+# warning; setting one is an error that says why
+_REMOVED = {
+    "layout": "the padded kernel layout was removed; every solve runs the"
+              " XLA layout, so -layout has nothing left to choose",
+}
 
 
 def _is_option(tok: str) -> bool:
@@ -375,6 +380,8 @@ def load_options(argv: list[str] | None = None) -> Options:
     unused: dict[str, str] = {}
     level_overrides: dict[int, dict] = {}
     for key, raw in merged.items():
+        if key in _REMOVED:
+            raise ValueError(f"-{key} {raw}: {_REMOVED[key]}")
         if key in _FIELDS:
             kwargs[key] = _coerce(key, raw)
         elif key in _ACCEPTED_NOOPS:

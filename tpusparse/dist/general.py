@@ -7,17 +7,16 @@ column entries arrive by VecScatter before the off-block multiply, overlapped
 with the diag-block compute (``MatMult_MPIAIJ``, exercised at 16-1024 ranks
 by ``/root/reference/runs/multiple-node-scaling.pbs:57-68``).
 
-The TPU-native equivalent here is built on the DIA container
+The equivalent here is built on the DIA container
 (``sparse/dia.py``): a block-row partition of the band arrays over a 1-D
 ``("rows",)`` device mesh, with the off-shard columns delivered by a
 fixed-width ``lax.ppermute`` window exchange — the VecScatter plan computed
 at setup (the window half-width = max |offset|).  Properties:
 
 - **gather-free**: shifts against the halo-extended local vector are static
-  slices, so the mv runs inside jitted CG loops at any size (the deployed
-  v5e libtpu crashes on gather-mv in loops at >= ~2M rows);
+  slices, so the mv runs inside jitted CG loops at any size;
 - the permute pair posts before the band multiplies and carries no data
-  dependence on them — XLA overlaps the ICI transfer with the local compute,
+  dependence on them — XLA can overlap the transfer with the local compute,
   exactly the VecScatterBegin/compute/VecScatterEnd overlap of the
   reference;
 - dots in the surrounding CG reduce with one ``psum`` via GSPMD (the

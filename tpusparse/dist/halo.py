@@ -9,7 +9,7 @@ the diagonal-block contribution from purely local data, VecScatterEnd, add
 the off-block contribution from received ghost planes.  Here the exchanges
 are ``lax.ppermute`` shifts along the ('z', 'y') mesh axes, and the code is
 ordered so the interior compute has no data dependence on the permutes —
-XLA overlaps the ICI transfer with the local stencil math, the same
+XLA can overlap the transfer with the local stencil math, the same
 communication/compute overlap the reference gets from
 VecScatterBegin/.../VecScatterEnd.
 

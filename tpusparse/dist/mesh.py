@@ -1,17 +1,17 @@
-"""Device-mesh distribution — the TPU-native replacement for the reference's
-MPI rank decomposition.
+"""Device-mesh distribution — the replacement for the reference's MPI rank
+decomposition.
 
 The reference scales by DMDA box decomposition over MPI ranks with VecScatter
 halo exchange inside MatMult_MPIAIJ and MPI_Allreduce for every CG dot
 (SURVEY.md sections 2c, 5.8).  Here the same spatial decomposition is a
-``jax.sharding.Mesh`` with fields sharded over (z, y) planes of the
-(nz, ny, nx) field view; the stencil shifts become GSPMD halo exchanges over
-ICI, and the dots become single ``psum``s — all inserted by XLA from sharding
+``jax.sharding.Mesh`` with fields sharded over (z, y) planes of the (nz, ny,
+nx) field view; the stencil shifts become GSPMD halo exchanges between devices,
+and the dots become single ``psum``s — all inserted by XLA from sharding
 annotations on one jitted program, not hand-written point-to-point calls.
 
 Sharding layout choices:
 - level-0 fields (the big ones) shard over ('z', 'y'): halo traffic = one
-  boundary plane per neighbor per stencil apply, riding ICI;
+  boundary plane per neighbor per stencil apply;
 - the AMG hierarchy's coarse levels are orders of magnitude smaller
   (27x per level) and are replicated — their transfers then need one
   collective at the fine/coarse seam instead of resharding every level;
@@ -80,12 +80,6 @@ def check_divisible(field_shape, mesh: Mesh) -> None:
 
 
 def _put(tree, sharding):
-    # sharded stencil applies must take the XLA lax.pad path (GSPMD partitions
-    # the pads into halo exchanges); the Pallas kernel is single-device
-    import dataclasses
-
-    if getattr(tree, "backend", None) is not None:
-        tree = dataclasses.replace(tree, backend="xla")
     # (27, nz, ny, nx) coefficient stacks (VarStencil27) shard along the
     # grid dims like the fields they multiply; replicating one on a fine
     # level is a per-device memory blowup and forces GSPMD resharding

@@ -4,17 +4,17 @@ The reference launches N MPI ranks with ``aprun -n N`` under PBS/ALPS and
 brackets everything in ``MPI_Init``/``MPI_Finalize``
 (``src/main_ksp.cpp:70-71,138-139``; ``runs/multiple-node-scaling.pbs:59``).
 The JAX equivalent is ONE process per host + ``jax.distributed.initialize``:
-all chips on all hosts then appear in ``jax.devices()``, meshes span hosts
-transparently, and XLA routes intra-slice collectives over ICI and
-cross-host traffic over DCN — there is no rank-level code at all
+all GPUs on all hosts then appear in ``jax.devices()``, meshes span hosts
+transparently, and XLA routes collectives between the devices (NCCL on
+GPUs) — there is no rank-level code at all
 (SURVEY.md section 5.8).
 
 Launch (e.g. under Slurm/GKE, one process per host):
 
     python -c "import tpusparse.dist.multihost as mh; mh.initialize(); ..."
 
-with the coordinator env vars set, or rely on the automatic cluster
-detection JAX ships for TPU pods (no arguments needed on Cloud TPU).
+with the coordinator env vars set, or pass the coordinator address,
+process count and rank explicitly.
 """
 
 from __future__ import annotations
@@ -31,8 +31,7 @@ def initialize(
 ) -> None:
     """Bring up the multi-host runtime (idempotent).
 
-    On Cloud TPU pods all arguments are auto-detected; elsewhere pass the
-    coordinator host:port and this process's rank, or set
+    Pass the coordinator host:port and this process's rank, or set
     JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID.
 
     Must run before any backend-initializing JAX call — so the check below

@@ -29,10 +29,10 @@ import dataclasses
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
+from tpusparse.amg.transfer import block_sum3, expand3
 from tpusparse.dist.mesh import AXES
 
 
@@ -99,10 +99,7 @@ class ShardedTransfer:
             # aggregates — boundary-straddling aggregates sum in the psum)
             szl = lax.dynamic_slice_in_dim(sz, iz * bz, bz, 0)
             syl = lax.dynamic_slice_in_dim(sy, iy * by, by, 0)
-            x = jnp.einsum("zyx,zc->cyx", r_blk, szl)
-            x = jnp.einsum("cyx,yd->cdx", x, syl)
-            x = jnp.einsum("cdx,xe->cde", x, sx)
-            return lax.psum(x, AXES) * tnorm
+            return lax.psum(block_sum3(r_blk, szl, syl, sx), AXES) * tnorm
 
         fn = jax.shard_map(
             local,
@@ -123,10 +120,7 @@ class ShardedTransfer:
             iy = lax.axis_index(AXES[1])
             szl = lax.dynamic_slice_in_dim(sz, iz * bz, bz, 0)
             syl = lax.dynamic_slice_in_dim(sy, iy * by, by, 0)
-            x = e * tnorm
-            x = jnp.einsum("zc,cde->zde", szl, x)
-            x = jnp.einsum("yd,zde->zye", syl, x)
-            return jnp.einsum("xe,zye->zyx", sx, x)
+            return expand3(e * tnorm, szl, syl, sx)
 
         fn = jax.shard_map(
             local,

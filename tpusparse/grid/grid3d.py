@@ -1,4 +1,4 @@
-"""Structured 3D cell-centered grid — the TPU-native analogue of PETSc DMDA.
+"""Structured 3D cell-centered grid — the JAX analogue of PETSc DMDA.
 
 Parity target: ``DMDACreate3d`` with ``DM_BOUNDARY_GHOSTED`` boundaries and a
 star stencil of width 1 (reference ``src/helper.cpp:31-36``).  DMDA's natural

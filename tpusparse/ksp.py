@@ -17,9 +17,8 @@ amortize it over every subsequent solve.
 The heavy lifting lives in the same modules the benchmark driver uses —
 ``amg.hierarchy.gamg_setup_compiled`` (structured stencil operators),
 ``amg.unstructured.gamg_setup_unstructured`` (general matrices),
-``solve.refine.cg_refined`` (mixed-precision defect correction), the
-fused padded pipeline (``amg/fused_cycle.py``) — so the object API and
-the CLI driver cannot drift apart numerically.
+``solve.refine.cg_refined`` (mixed-precision defect correction) — so the
+object API and the CLI driver cannot drift apart numerically.
 
 Example::
 
@@ -66,10 +65,9 @@ def _op_kind(op) -> str:
     containers), or 'opaque' (anything with an ``mv``)."""
     from tpusparse.sparse.bandell import BandedELL
     from tpusparse.sparse.dia import DFDIA, DIA, HybridDIA
-    from tpusparse.sparse.padded import PaddedStar
     from tpusparse.sparse.stencil import StarStencil3D, StarStencilDF
 
-    if isinstance(op, (StarStencil3D, StarStencilDF, PaddedStar)):
+    if isinstance(op, (StarStencil3D, StarStencilDF)):
         return "structured"
     if isinstance(op, (DIA, HybridDIA, DFDIA, BandedELL)):
         return "general"
@@ -128,7 +126,6 @@ class KSP:
         reuse_preconditioner: bool = True,
         gmres_restart: int = 30,
         richardson_scale: float = 1.0,
-        layout: str = "auto",
         error_if_not_converged: bool = False,
         mat_reorder: str = "auto",
     ):
@@ -141,8 +138,6 @@ class KSP:
             raise ValueError(f"unknown pc_type {pc_type!r}")
         if mg_cycle not in ("v", "w"):
             raise ValueError(f"unknown mg_cycle {mg_cycle!r}")
-        if layout not in ("auto", "padded", "plain"):
-            raise ValueError(f"unknown layout {layout!r}")
         if mat_reorder not in ("auto", "rcm", "none"):
             raise ValueError(f"unknown mat_reorder {mat_reorder!r}")
         self.ksp_type = ksp_type
@@ -155,7 +150,6 @@ class KSP:
         self.amg_params = amg_params or AMGParams()
         self.mg_cycle = mg_cycle
         self.reuse_preconditioner = reuse_preconditioner
-        self.layout = layout
         self.error_if_not_converged = error_if_not_converged
         # -mat_reorder: bandwidth-reducing row/col permutation for
         # assembled host matrices (sparse/reorder.py).  "auto" reorders
@@ -174,11 +168,7 @@ class KSP:
         self._op_lo = None       # low-precision twin (inner solves / PC)
         self._host_a = None      # optional HostCSR (greedy aggregation)
         self._pc_state = None    # hierarchy / inverse-diagonal / ()
-        self._op_lo_plain = None  # pre-padding operator (mat_solve twin)
-        self._pc_state_plain = None  # plain-layout hierarchy (mat_solve)
         self._m_of = None
-        self._encode = None      # padded-layout translators
-        self._decode = None
         self._jitted = None
         self._jitted_x0 = None
         self._jitted_multi = None
@@ -200,7 +190,6 @@ class KSP:
             mg_cycle=opts.pc_mg_cycle_type,
             gmres_restart=opts.ksp_gmres_restart,
             richardson_scale=opts.ksp_richardson_scale,
-            layout=opts.layout,
             mat_reorder=opts.mat_reorder,
         )
 
@@ -297,37 +286,8 @@ class KSP:
         else:
             self._op_lo = a
         if not self.reuse_preconditioner:
-            # full PC invalidation — including the lazily-built plain twin
-            # mat_solve caches, else a later mat_solve would precondition
-            # the NEW operator with the OLD operator's hierarchy
             self._pc_state = None
             self._m_of = None
-            self._pc_state_plain = None
-            self._op_lo_plain = None
-            self._encode = None
-            self._decode = None
-        elif self._encode is not None and self._pc_state is not None:
-            # KSPSetReusePreconditioner on the PADDED layout: the kept
-            # hierarchy/encode work on padded fields, so the swapped-in
-            # operator's low twin must be padded too (same grid) —
-            # otherwise the reuse contract cannot hold and the PC is
-            # dropped for a rebuild on the next setup()
-            from tpusparse.sparse.padded import PaddedStar
-            from tpusparse.sparse.stencil import StarStencil3D
-
-            old = getattr(self._op_lo_plain, "grid_shape", None)
-            if (
-                isinstance(self._op_lo, StarStencil3D)
-                and self._op_lo.grid_shape == old
-            ):
-                self._op_lo_plain = self._op_lo
-                self._op_lo = PaddedStar.from_star(self._op_lo)
-            else:
-                self._pc_state = None
-                self._m_of = None
-                self._pc_state_plain = None
-                self._encode = None
-                self._decode = None
         self._jitted = None
         self._jitted_x0 = None
         self._jitted_multi = None
@@ -342,12 +302,7 @@ class KSP:
             raise RuntimeError("call set_operators before setup/solve")
         if self._pc_state is not None and self.reuse_preconditioner:
             return self
-        # rebuilding: drop every artifact derived from the previous PC —
-        # padded translators, the plain mat_solve twin, compiled programs
-        self._encode = None
-        self._decode = None
-        self._pc_state_plain = None
-        self._op_lo_plain = None
+        # rebuilding: drop the compiled programs derived from the previous PC
         self._jitted_x0 = None
         self._jitted_multi = None
         kind = _op_kind(self._op_lo)
@@ -359,69 +314,13 @@ class KSP:
 
             if kind == "structured":
                 from tpusparse.amg.hierarchy import gamg_setup_compiled
-                from tpusparse.bench.driver import _plain_cycle_only
-                from tpusparse.kernels.stencil7 import (
-                    is_tpu_backend,
-                    star7_supported,
+
+                self._pc_state = gamg_setup_compiled(
+                    self._op_lo, self.amg_params
                 )
-
-                op_lo = self._op_lo
-                self._op_lo_plain = op_lo  # pre-padding twin (mat_solve)
-                grid_shape = op_lo.grid_shape
-                if self.layout == "padded" and _plain_cycle_only(
-                    self.amg_params
-                ):
-                    # same contract as the CLI driver: an explicit layout
-                    # request that the fused kernels cannot honor is an
-                    # error, never a silent substitution
-                    raise ValueError(
-                        "layout='padded' is point-Jacobi + jacobi-coarse"
-                        " only; drop bjacobi_bs / smoother='sor' /"
-                        " coarse_solve='lu' or use layout='plain'/'auto'"
-                    )
-                padded = (
-                    mixed
-                    and not _plain_cycle_only(self.amg_params)
-                    and star7_supported(grid_shape, np.float32)
-                    and (
-                        self.layout == "padded"
-                        or (self.layout == "auto" and is_tpu_backend())
-                    )
+                self._m_of = lambda ps: (
+                    lambda r: vcycle(ps, r, gamma=gamma)
                 )
-                if padded:
-                    from functools import partial
-
-                    from tpusparse.sparse.padded import (
-                        PaddedStar,
-                        crop_field,
-                        pad_field,
-                    )
-
-                    op_lo = PaddedStar.from_star(op_lo)
-                    self._op_lo = op_lo
-                    self._encode = pad_field
-                    self._decode = partial(crop_field, shape=grid_shape)
-                self._pc_state = gamg_setup_compiled(op_lo, self.amg_params)
-                if padded:
-                    from tpusparse.amg.fused_cycle import (
-                        preflight,
-                        vcycle_fused,
-                    )
-                    from tpusparse.amg.hierarchy import cast_coarse_coefs
-
-                    self._pc_state = cast_coarse_coefs(self._pc_state)
-                    if preflight(self._pc_state):
-                        self._m_of = lambda ps: (
-                            lambda r: vcycle_fused(ps, r, gamma=gamma)
-                        )
-                    else:
-                        self._m_of = lambda ps: (
-                            lambda r: vcycle(ps, r, gamma=gamma)
-                        )
-                else:
-                    self._m_of = lambda ps: (
-                        lambda r: vcycle(ps, r, gamma=gamma)
-                    )
             elif kind == "general":
                 from tpusparse.amg.unstructured import (
                     gamg_setup_unstructured,
@@ -516,27 +415,13 @@ class KSP:
 
     # -- KSPSolve ----------------------------------------------------------
 
-    def _needs_chunked_solve(self) -> bool:
-        """True when the fine operator is a gather-bearing segmented
-        executor too large for a while_loop program on the deployed
-        libtpu (sparse/bandell.py; GATHER_ROW_CAP policy)."""
-        from tpusparse.kernels.stencil7 import is_tpu_backend
-        from tpusparse.sparse.bandell import BandedELL
-        from tpusparse.sparse.dia import GATHER_ROW_CAP
-
-        op = self._op_lo if self._op_lo is not None else self._op
-        return (
-            isinstance(op, BandedELL)
-            and op.n_rows > GATHER_ROW_CAP
-            and is_tpu_backend()
-        )
-
     def _solve_chunked(self, b: jax.Array, x0) -> KSPResult:
-        """Gather-safe solve: fixed-trip fori chunks with host-side
+        """Host-loop solve: fixed-trip fori chunks with host-side
         convergence checks (``solve/cg.cg_hostloop``), under an EAGER
         defect-correction outer loop for mixed precision.  Functionally
         the same contract as the jitted path; costs one dispatch per chunk
-        of iterations."""
+        of iterations.  ``solve`` never routes here: it is library code
+        kept beside ``cg_hostloop``."""
         import numpy as np
 
         from tpusparse.solve.cg import ConvergedReason, cg_hostloop
@@ -615,7 +500,6 @@ class KSP:
         absolute gate, so a good warm start exits immediately."""
         mixed = self.precision == "mixed"
         m_of = self._m_of
-        encode, decode = self._encode, self._decode
         rtol, atol, maxiter = self.rtol, self.atol, self.maxiter
         divtol = self.divtol
         ksp_solve = self._ksp_solve
@@ -634,8 +518,7 @@ class KSP:
                     # values since maxiter defaults to 10000)
                     max_outer=min(12, maxiter),
                     inner_maxiter=min(200, maxiter),
-                    m_lo_mv=m_of(pc_state), encode=encode, decode=decode,
-                    solver=ksp_solve, **kw,
+                    m_lo_mv=m_of(pc_state), solver=ksp_solve, **kw,
                 )
         else:
             def solve_fn(op_hi, op_lo, pc_state, b, bnorm_ref=None):
@@ -668,33 +551,12 @@ class KSP:
         self.setup()
         if self._perm is not None:
             # solve in RCM-permuted space: P A P^T (P x) = P b.  One
-            # top-level take each way (outside every solver loop — the
-            # libtpu gather hazard is loop-context only); the similarity
-            # transform leaves the spectrum and hence the iteration
-            # sequence untouched.
+            # top-level take each way, outside every solver loop; the
+            # similarity transform leaves the spectrum and hence the
+            # iteration sequence untouched.
             b = jnp.take(b.reshape(-1), self._perm)
             if x0 is not None:
                 x0 = jnp.take(x0.reshape(-1), self._perm)
-        if self._needs_chunked_solve():
-            # large gather-bearing executor: the deployed libtpu crashes
-            # its worker on gather programs inside lax.while_loop at this
-            # scale even when every individual gather is window-local
-            # (measured at 150^3: all pieces pass standalone AND in
-            # fori_loop, the combined while_loop program kills the
-            # worker).  Route through the gather-safe chunked driver —
-            # fixed-trip fori chunks with host-side convergence checks —
-            # the same policy solve/cg.cg_hostloop documents.
-            res = self._solve_chunked(b, x0)
-            if self._perm is not None:
-                res = dataclasses.replace(
-                    res, x=jnp.take(res.x.reshape(-1), self._iperm)
-                )
-            self._last = res
-            if self.error_if_not_converged and res.reason < 0:
-                from tpusparse.bench.driver import DivergedError
-
-                raise DivergedError(f"Diverged reason: {res.reason}")
-            return res
         # structured operators apply on the 3-D field view; accept flat
         # vectors and answer in kind
         flat_in = False
@@ -744,8 +606,7 @@ class KSP:
         finish (``solve/multi.py``).  Returns a ``MultiResult`` with
         per-column iterations/residuals/reasons.
 
-        Uses the plain XLA V-cycle (the fused Pallas kernels are
-        single-field programs) and requires ``ksp_type='cg'``.
+        Requires ``ksp_type='cg'``.
         """
         if self.ksp_type != "cg":
             raise ValueError(
@@ -763,23 +624,8 @@ class KSP:
         rtol, atol, maxiter = self.rtol, self.atol, self.maxiter
         divtol = self.divtol
 
-        # the batched program vmaps the single-column applies, so every
-        # container must run its XLA form: the padded/fused layout's
-        # Pallas kernels are single-field programs.  When setup() chose
-        # the padded layout, build (once) a PLAIN twin hierarchy from the
-        # pre-padding operator.
-        op_lo, pc_state = self._op_lo, self._pc_state
-        if self._encode is not None:
-            if self._pc_state_plain is None:
-                from tpusparse.amg.hierarchy import gamg_setup_compiled
-
-                self._pc_state_plain = gamg_setup_compiled(
-                    self._op_lo_plain, self.amg_params
-                )
-            op_lo, pc_state = self._op_lo_plain, self._pc_state_plain
-
-        # preconditioner: always the plain (vmappable) form — never the
-        # fused kernel closure self._m_of may hold
+        op_hi, op_lo, pc_state = self._op, self._op_lo, self._pc_state
+        # preconditioner: the vmappable V-cycle / diagonal forms
         if self.pc_type == "gamg":
             from tpusparse.amg.hierarchy import vcycle
 
@@ -788,26 +634,6 @@ class KSP:
             m_of = lambda ps: (lambda r: ps * r)
         else:
             m_of = lambda ps: None
-
-        # force the pure-XLA apply under vmap: Pallas kernels are single-
-        # field programs that cannot batch by growing a grid dimension on
-        # this toolchain (the dense_coarse_inverse precedent)
-        def _xla(op):
-            return (
-                dataclasses.replace(op, backend="xla")
-                if hasattr(op, "backend") else op
-            )
-
-        op_hi = _xla(self._op)
-        op_lo = _xla(op_lo)
-        if hasattr(pc_state, "levels"):
-            pc_state = dataclasses.replace(
-                pc_state,
-                levels=[
-                    dataclasses.replace(lev, op=_xla(lev.op))
-                    for lev in pc_state.levels
-                ],
-            )
 
         if self._jitted_multi is None:
             from tpusparse.solve.multi import cg_multi, refined_multi
@@ -875,8 +701,6 @@ class KSP:
         elif gshape is not None and b.ndim == 1:
             b = b.reshape(gshape)
         b = b.astype(op.dtype)
-        if self._encode is not None:
-            b = self._encode(b)
         m_of = self._m_of
 
         @partial(jax.jit, static_argnames=())

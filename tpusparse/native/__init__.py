@@ -1,12 +1,12 @@
 """ctypes bindings for the native (C++) setup engine.
 
-The hot solve path is JAX/Pallas on the TPU; this package is the native
+The hot solve path is JAX/XLA on the GPU; this package is the native
 runtime for the *setup* path — CSR SpGEMM (Galerkin PtAP), greedy
 aggregation, transpose, and the 7-point assembly — mirroring how the
 reference's setup work runs inside PETSc's C internals (GAMG MatPtAP etc.,
 exercised from ``/root/reference/src/main_ksp.cpp:97``).
 
-``lib()`` loads (building on demand with g++) ``libtpusparse_native.so`` from
+``lib()`` loads (building on demand with g++) ``tpusparse_native.so`` from
 ``csrc/``; every entry point has a pure-Python/scipy fallback, so the library
 remains fully functional without a C++ toolchain (``available()`` reports
 which path is active).
@@ -22,7 +22,7 @@ import subprocess
 import numpy as np
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent.parent / "csrc"
-_SO = _CSRC / "libtpusparse_native.so"
+_SO = _CSRC / "tpusparse_native.so"
 _lib: ctypes.CDLL | None = None
 _tried = False
 

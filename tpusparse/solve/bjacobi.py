@@ -8,10 +8,9 @@ of A, invert them once at setup (KSPSetUp parity), and apply
 
     z_block = inv(D_block) @ r_block
 
-as one batched small matmul.  TPU-native properties: the apply is a single
-(nb, bs, bs) x (nb, bs) einsum — MXU-batched, **gather-free** (block i reads
-exactly slice i of r), so unlike the ELL/BSR gather mv it runs inside jitted
-solver loops at any size on the deployed v5e libtpu.
+as one batched small matmul.  Properties: the apply is a single
+(nb, bs, bs) x (nb, bs) einsum at full float32 precision, **gather-free**
+(block i reads exactly slice i of r).
 
 Use: AMG level smoother sub-PC (``gamg_setup_unstructured(...,
 bjacobi_bs=4)``) for multi-dof-per-node discretizations where coupling the
@@ -115,7 +114,7 @@ class BlockJacobi:
         block-Jacobi means.
 
         Returns a :class:`BlockJacobi` (dense inverted blocks, one batched
-        MXU einsum per apply) while that fits the entry cap; tridiagonal
+        einsum per apply) while that fits the entry cap; tridiagonal
         blocks past the cap — the production x-line case, ``bs = nx`` at
         300^3 would need ~32 GB dense — return a :class:`PCRLineJacobi`
         instead (same ``apply`` contract).
@@ -173,6 +172,7 @@ class BlockJacobi:
         z = jnp.einsum(
             "kij,kj->ki", self.dinv_blocks, rb,
             preferred_element_type=rb.dtype,
+            precision=jax.lax.Precision.HIGHEST,
         ).reshape(-1)
         return (z[: self.n] if pad else z).reshape(r.shape)
 
@@ -210,7 +210,7 @@ class PCRLineJacobi:
     so every block is tridiagonal).  A dense inverse would need
     O(n*bs) memory — ~32 GB at the production 300^3 — and a Thomas sweep
     is a bs-step sequential scan, the worst shape for a wide-vector
-    machine.  PCR is the TPU-native answer: ceil(log2 bs) recursive-
+    machine.  PCR is the parallel answer: ceil(log2 bs) recursive-
     doubling steps, each a handful of elementwise madds + static-slice
     shifts over the (nb, bs) batch — gather-free, fully vectorized, and
     because the reduction coefficients depend only on the matrix they are

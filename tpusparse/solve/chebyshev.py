@@ -4,7 +4,7 @@ PETSc exposes the Chebyshev polynomial iteration both as the standard MG
 smoother (our ``amg/hierarchy._smooth``) and as a KSP type in its own
 right: dot-product-free per iteration (one A-apply + one M-apply + vector
 updates), which makes it the latency-free alternative to CG when
-collective reductions dominate — on a TPU pod, an iteration with NO
+collective reductions dominate — on a multi-GPU mesh, an iteration with NO
 ``psum`` on the critical path.  The convergence-check norm here is
 computed every iteration for the PETSc ``KSPConvergedDefault`` contract
 (costing the dot back); a production latency-sensitive caller can raise

@@ -2,7 +2,7 @@
 
 The reference has none (SURVEY.md sections 5.3-5.4): its solves finish in
 seconds-to-minutes and PBS jobs are fixed-size, so fail-fast (CHKERRQ /
-SETERRQ) was enough.  For long multi-host TPU solves the cheap insurance the
+SETERRQ) was enough.  For long multi-host solves the cheap insurance the
 survey recommends is snapshotting the Krylov state — for CG that is just the
 current iterate (plus metadata): on resume we warm-restart CG from the saved
 x, recomputing r = b - A x.  A warm restart drops the conjugacy history, but

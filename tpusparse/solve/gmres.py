@@ -5,13 +5,13 @@ operator is SPD), but a general-matrix framework needs the nonsymmetric
 workhorse (``-ksp_type gmres -ksp_gmres_restart k``) — the DIA/ELL general
 containers (``sparse/dia.py``) make nonsymmetric operators first-class here.
 
-TPU-native design decisions:
+Design decisions:
 
 - the Krylov basis is ONE dense (restart+1, n) array, so orthogonalization
-  is two MXU matmuls per step (CGS2 — classical Gram-Schmidt applied twice)
-  instead of the j-length sequential dot chain of modified Gram-Schmidt:
-  numerically equivalent to MGS for practical purposes and far better
-  shaped for the hardware;
+  is two matrix products per step, at full float32 precision (CGS2 —
+  classical Gram-Schmidt applied twice) instead of the j-length sequential
+  dot chain of modified Gram-Schmidt: numerically equivalent to MGS for
+  practical purposes and far better shaped for the hardware;
 - the Hessenberg least-squares problem is carried as Givens rotations
   updated per step (all O(restart^2) scalars — negligible), giving the
   per-iteration residual estimate |g[j+1]| without forming Q or R;
@@ -25,12 +25,17 @@ the PRECONDITIONED residual norm (KSP_NORM_PRECONDITIONED semantics).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
 
 from tpusparse.solve.cg import CGResult, ConvergedReason, _dot
+
+# basis products at full precision: a float32 product may otherwise run in
+# TF32 on a GPU, which would spoil the orthogonalization
+_mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 def gmres(
@@ -121,12 +126,13 @@ def gmres(
                 lambda vj: jnp.zeros((n,), dt),
                 v[j],
             )
-            # CGS2: two rounds of classical Gram-Schmidt as MXU matmuls.
-            # Unfilled basis rows are zero, so masking is automatic.
-            c1 = v @ w
-            w = w - v.T @ c1
-            c2 = v @ w
-            w = w - v.T @ c2
+            # CGS2: two rounds of classical Gram-Schmidt as matrix
+            # products.  Unfilled basis rows are zero, so masking is
+            # automatic.
+            c1 = _mm(v, w)
+            w = w - _mm(v.T, c1)
+            c2 = _mm(v, w)
+            w = w - _mm(v.T, c2)
             hj = c1 + c2                          # (m+1,) coefficients
             wnorm = jnp.sqrt(jnp.vdot(w, w)).astype(dt)
             hj = hj.at[j + 1].set(wnorm)
@@ -188,7 +194,7 @@ def gmres(
         )
         y = jax.scipy.linalg.solve_triangular(hs, g[:m], lower=False)
         y = jnp.where(valid, y, jnp.zeros((), dt))
-        x = x + (v[:m].T @ y).reshape(shape)
+        x = x + _mm(v[:m].T, y).reshape(shape)
         return (x, rnorm, it, hist)
 
     def cond(carry):

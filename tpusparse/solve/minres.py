@@ -7,7 +7,7 @@ eigenproblem shifts) — minimizing ``||b - A x||`` over the Krylov space
 instead of the A-norm error.  This is the Paige–Saunders algorithm with an
 SPD preconditioner M: one A-apply + one M-apply per iteration, a 3-term
 Lanczos recurrence, and a Givens-QR update of the solution — all
-fixed-shape vector ops, so the whole loop jits to a single TPU program
+fixed-shape vector ops, so the whole loop jits to a single device program
 like ``cg``.
 
 Convergence follows PETSc's KSPMINRES norm convention

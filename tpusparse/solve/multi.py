@@ -3,9 +3,9 @@
 PETSc grew ``KSPMatSolve`` (solve A X = B for a dense block of right-hand
 sides) because solving k systems one at a time wastes the operator's
 memory traffic: every CG iteration re-streams the matrix for a single
-vector.  On TPU the batched form is structurally better still — one
+vector.  Here the batched form is structurally better still — one
 batched apply streams the stencil/band coefficients ONCE for all k
-columns (operator HBM traffic amortized k-fold, VPU lanes kept full) and
+columns (operator memory traffic amortized k-fold) and
 the per-column scalar recurrences become (k,)-vector ops.
 
 The iteration here is per-column MASKED independent CG — not a shared-
@@ -193,8 +193,6 @@ def refined_multi(
     inner_maxiter: int = 200,
     m_lo_mv: Callable | None = None,
     lo_dtype=jnp.float32,
-    encode: Callable | None = None,
-    decode: Callable | None = None,
     batched_ops: bool = False,
     divtol: float = 1e5,
 ) -> MultiResult:
@@ -202,17 +200,9 @@ def refined_multi(
     masked): f32 block-CG inners under per-column f64 outer gates, with the
     single-RHS path's adaptive inner tolerance and stall detection.
 
-    ``encode``/``decode`` translate single-column fields between the outer
-    layout and the inner solver's layout (vmapped here); apply functions
-    are single-column unless ``batched_ops``.
+    Apply functions are single-column unless ``batched_ops``.
     """
     mv_hi = a_hi_mv if batched_ops else jax.vmap(a_hi_mv)
-    enc = None if encode is None else (
-        encode if batched_ops else jax.vmap(encode)
-    )
-    dec = None if decode is None else (
-        decode if batched_ops else jax.vmap(decode)
-    )
 
     from tpusparse.solve.refine import _norm_fast
 
@@ -273,8 +263,6 @@ def refined_multi(
             ConvergedReason.ITERATING
         )
         r_lo = (r / _bc(rnorm, r)).astype(lo_dtype)
-        if enc is not None:
-            r_lo = enc(r_lo)
         # adaptive per-column inner tolerance (solve/refine.py rule);
         # frozen columns solve to the loosest gate so they cost ~nothing
         need = jnp.clip(0.25 * tol / rnorm, inner_rtol, 0.5)
@@ -283,8 +271,7 @@ def refined_multi(
             a_lo_mv, r_lo, rtol=need, maxiter=inner_maxiter,
             m_mv=m_lo_mv, batched_ops=batched_ops,
         )
-        e = dec(res.x) if dec is not None else res.x
-        e = e.astype(dt) * _bc(rnorm, e)
+        e = res.x.astype(dt) * _bc(rnorm, res.x)
         x = jnp.where(_bc(act, x), x + e, x)
         r_new = b - mv_hi(x)  # one high-precision block apply per sweep
         r = jnp.where(_bc(act, r), r_new, r)

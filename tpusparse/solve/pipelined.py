@@ -2,7 +2,7 @@
 per iteration.
 
 Why it exists: classic PCG pays two dependent reduction points per iteration
-((r,z) then (p,Ap)); on a large device mesh each is an ICI/DCN allreduce on
+((r,z) then (p,Ap)); on a large device mesh each is an allreduce on
 the critical path.  The reference pays the same cost as two MPI_Allreduce
 calls inside every KSPSolve iteration (SURVEY.md section 5.8, traffic class
 2).  The pipelined recurrence computes gamma = (r,u), delta = (w,u) and
@@ -22,11 +22,11 @@ definitions.  The amortized cost is ~3/replace_every extra operator applies
 per iteration; with AMG preconditioning (tens of iterations) replacement
 rarely triggers at all.
 
-Caveat measured on TPU v5e: f64 there is software-emulated with harsher
-rounding, and *unpreconditioned* many-hundred-iteration pipelined runs can
-stagnate where classic CG converges.  Use pipelined CG in its intended
-regime — preconditioned solves with few dozen iterations (verified on-chip
-to match classic CG) — or classic ``cg`` for long unpreconditioned f64 runs.
+Caveat (an inherited measurement, not repeated on the GPU): *unpreconditioned*
+many-hundred-iteration pipelined runs can stagnate where classic CG
+converges.  Use pipelined CG in its intended regime — preconditioned solves
+with few dozen iterations — or classic ``cg`` for long unpreconditioned
+runs.
 
 Reference: Ghysels & Vanroose, "Hiding global synchronization latency in the
 preconditioned Conjugate Gradient algorithm", Parallel Computing 40 (2014).

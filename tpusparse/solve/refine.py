@@ -1,10 +1,10 @@
-"""Mixed-precision iterative refinement (defect correction) — the TPU answer
-to "converge to rtol 1e-14 on hardware without native f64".
+"""Mixed-precision iterative refinement (defect correction): float64
+tolerances from float32 inner solves.
 
-TPU v5e emulates f64; elementwise f64 *compute* runs ~10-30x slower than f32,
-which turns the stencil-apply-heavy V-cycle from bandwidth-bound into
-emulation-compute-bound (measured ~0.9 s/iteration at 300^3 vs ~30 ms in
-f32).  The classic HPC fix is defect correction:
+The scheme was built for an accelerator that emulated f64; the H100 has
+native f64, so whether mixed precision still pays there is a measurement
+not made yet.  It halves the bytes every AMG/CG pass moves.
+The classic HPC formulation:
 
     x = 0                                 (f64)
     repeat:
@@ -19,7 +19,7 @@ speed and memory.  The inner system is solved for the *normalized* residual
 (r / ||r||) so late-stage tiny residual magnitudes never lose f32 range.
 
 The reference achieves its tolerances with uniform f64 everywhere (K20x has
-native f64); this module achieves the same tolerances at TPU-native speed.
+native f64); this module reaches the same tolerances with f32 inner work.
 Reported iteration counts are total inner CG iterations (comparable to the
 reference's KSP iteration count) plus the outer count.
 """
@@ -39,9 +39,9 @@ from tpusparse.solve.cg import CGResult, ConvergedReason, cg
 def _norm_fast(r: jax.Array) -> jax.Array:
     """||r||_2 of a (possibly f64) vector, computed on the f32 datapath.
 
-    Emulated-f64 reductions are catastrophically slow on TPUs without native
-    f64 (measured 264 ms for one 300^3 dot on v5e — 6x the cost of an entire
-    f32 CG+AMG iteration); a convergence gate only needs a few digits.
+    Written for an accelerator whose emulated-f64 reductions were slow (an
+    inherited limit, not measured on the GPU); a convergence gate only
+    needs a few digits.
     Max-scaled f32 evaluation is overflow/underflow-safe and ~1e-7 accurate;
     the result is cast back to r's dtype for use in f64 scalar algebra.
     """
@@ -87,14 +87,8 @@ def cg_refined(
     inner_rtol: float = 1e-5,
     inner_maxiter: int = 200,
     m_lo_mv: Callable | None = None,
-    m_lo_mv_dots: Callable | None = None,
-    a_lo_mv_dot: Callable | None = None,
-    ab_fused: Callable | None = None,
-    m_fused: Callable | None = None,
     check_every: int = 1,
     lo_dtype=jnp.float32,
-    encode: Callable | None = None,
-    decode: Callable | None = None,
     solver: Callable = cg,
     history: bool = False,
     divtol: float = 1e5,
@@ -102,10 +96,7 @@ def cg_refined(
     """Solve A x = b to high-precision tolerances with low-precision inners.
 
     ``a_hi_mv`` applies A in b's (high) dtype; ``a_lo_mv``/``m_lo_mv`` apply
-    the operator/preconditioner in ``lo_dtype``.  ``encode``/``decode``
-    translate between the outer vector layout and the inner solver's layout
-    (e.g. the padded-resident layout of ``sparse/padded.py``); default
-    identity.  Jit-compatible.
+    the operator/preconditioner in ``lo_dtype``.  Jit-compatible.
 
     ``history=True`` additionally returns a ``(max_outer+1,)`` f32 array of
     per-OUTER-sweep true-residual norms (index 0 = ||b||; zeros past
@@ -122,8 +113,6 @@ def cg_refined(
 
     def inner(r_hi, rnorm):
         r_lo = (r_hi / rnorm).astype(lo_dtype)
-        if encode is not None:
-            r_lo = encode(r_lo)
         # adaptive inner tolerance: reduce only as far as the OUTER gate
         # still needs (x0.25 safety), floored at what f32 can reliably
         # deliver — the final sweep then runs a handful of iterations
@@ -132,23 +121,13 @@ def cg_refined(
             0.25 * tol / rnorm, inner_rtol, 0.5
         ).astype(jnp.float32)
         kw = {}
-        if ab_fused is not None and m_fused is not None:
-            # full-fusion CG body (cg-only): overrides the dot-fused
-            # preconditioner interface entirely
-            kw["ab_fused"] = ab_fused
-            kw["m_fused"] = m_fused
-        elif m_lo_mv_dots is not None:
-            kw["m_mv_dots"] = m_lo_mv_dots  # cg-only fused-dot interface
-        if a_lo_mv_dot is not None and ab_fused is None:
-            kw["a_mv_dot"] = a_lo_mv_dot    # cg-only fused mv+<p,Ap>
         if check_every != 1:
             kw["check_every"] = check_every
         res = solver(
             a_lo_mv, r_lo, rtol=need, maxiter=inner_maxiter,
             m_mv=m_lo_mv, **kw,
         )
-        e = decode(res.x) if decode is not None else res.x
-        return e.astype(dt) * rnorm, res.iters
+        return res.x.astype(dt) * rnorm, res.iters
 
     def classify(rnorm, prev, outer):
         # stall = a full sweep failed to halve the true residual: the
@@ -234,27 +213,21 @@ def cg_refined_tf(
     inner_rtol: float = 1e-5,
     inner_maxiter: int = 200,
     m_lo_mv: Callable | None = None,
-    m_lo_mv_dots: Callable | None = None,
-    a_lo_mv_dot: Callable | None = None,
-    ab_fused: Callable | None = None,
-    m_fused: Callable | None = None,
     check_every: int = 1,
-    encode: Callable | None = None,
-    decode: Callable | None = None,
     solver: Callable = cg,
     history: bool = False,
     divtol: float = 1e5,
 ) -> RefinedResult:
     """Defect correction with a **two-float** outer loop — no f64 anywhere.
 
-    Same algorithm as ``cg_refined`` but the high-precision state (x, r, b)
-    is DF64 (paired f32, ~1.4e-14 relative precision; utils/twofloat.py) and
-    the outer operator apply is ``a_df`` (StarStencilDF).  On TPUs whose f64
-    is emulated this keeps the entire solve on the f32 datapath.  Precision
+    Same algorithm as ``cg_refined`` but the high-precision state (x, r, b) is
+    DF64 (paired f32, ~1.4e-14 relative precision; utils/twofloat.py) and the
+    outer operator apply is ``a_df`` (StarStencilDF).  This keeps the entire
+    solve on the f32 datapath, which paid where f64 was emulated. Precision
     note: DF64 carries ~48 mantissa bits vs f64's 53, so the achievable
-    relative residual floor is ~1e-14 — ample for the benchmark gate
-    (rtol 1e-8); use ``cg_refined`` (true f64) to chase the reference
-    config's last decade (rtol 1e-14) on hardware with native f64.
+    relative residual floor is ~1e-14 — ample for the benchmark gate (rtol
+    1e-8); use ``cg_refined`` (true f64) to chase the reference config's last
+    decade (rtol 1e-14) on hardware with native f64.
 
     ``b`` may be f64 (converted) or already DF64.  Returns x as f64.
     """
@@ -277,28 +250,16 @@ def cg_refined_tf(
     def inner(r, rnorm):
         # normalized f32 view of the DF64 residual
         r_lo = r.hi / rnorm + r.lo / rnorm
-        if encode is not None:
-            r_lo = encode(r_lo)
         # adaptive inner tolerance (see cg_refined.inner)
         need = jnp.clip(0.25 * tol / rnorm, inner_rtol, 0.5)
         kw = {}
-        if ab_fused is not None and m_fused is not None:
-            # full-fusion CG body (cg-only): overrides the dot-fused
-            # preconditioner interface entirely
-            kw["ab_fused"] = ab_fused
-            kw["m_fused"] = m_fused
-        elif m_lo_mv_dots is not None:
-            kw["m_mv_dots"] = m_lo_mv_dots  # cg-only fused-dot interface
-        if a_lo_mv_dot is not None and ab_fused is None:
-            kw["a_mv_dot"] = a_lo_mv_dot    # cg-only fused mv+<p,Ap>
         if check_every != 1:
             kw["check_every"] = check_every
         res = solver(
             a_lo_mv, r_lo, rtol=need, maxiter=inner_maxiter,
             m_mv=m_lo_mv, **kw,
         )
-        e = decode(res.x) if decode is not None else res.x
-        return e * rnorm, res.iters
+        return res.x * rnorm, res.iters
 
     def classify(rnorm, prev, outer):
         # stall = a full sweep failed to halve the true residual (the

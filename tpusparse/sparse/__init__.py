@@ -1,7 +1,7 @@
 from tpusparse.sparse.bsr import BSR
 from tpusparse.sparse.coo import COO
 from tpusparse.sparse.csr import HostCSR
-from tpusparse.sparse.dia import DIA, PallasDIA
+from tpusparse.sparse.dia import DIA
 from tpusparse.sparse.ell import ELL
 from tpusparse.sparse.io import (
     load_matrix,
@@ -10,7 +10,6 @@ from tpusparse.sparse.io import (
     save_petsc_mat,
     save_petsc_vec,
 )
-from tpusparse.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse.sparse.stencil import StarStencil3D, StarStencilDF
 from tpusparse.sparse.varstencil import VarStencil27
 
@@ -19,14 +18,10 @@ __all__ = [
     "COO",
     "HostCSR",
     "DIA",
-    "PallasDIA",
     "ELL",
-    "PaddedStar",
     "StarStencil3D",
     "StarStencilDF",
     "VarStencil27",
-    "crop_field",
-    "pad_field",
     "load_matrix",
     "load_petsc_mat",
     "load_petsc_vec",

@@ -2,9 +2,11 @@
 general CSR at ANY row count.
 
 Completes the general-matrix (MatMult_SeqAIJ) story: plain ELL's
-``x[cols]`` gather crashes the deployed libtpu worker once the gather
-operand exceeds ~1.5M rows inside solver loops (``sparse/dia.py``
-GATHER_ROW_CAP, documented crash), and DIA storage is infeasible when the
+``x[cols]`` gather failed on the accelerator this was first built for once
+the gather operand exceeded ~1.5M rows inside solver loops
+(``sparse/dia.py`` GATHER_ROW_CAP; an inherited limit, not measured on the
+GPU), and DIA storage
+is infeasible when the
 matrix occupies thousands of distinct diagonals — exactly what an
 RCM-reordered scattered matrix looks like (bounded bandwidth W, arbitrary
 in-band structure; ``sparse/reorder.py``).
@@ -15,11 +17,9 @@ segments of L rows; row i of segment s only references columns in
 **statically-sliced** (L + 2W)-vector and the per-entry gather indexes
 only that window.  The segment loop is unrolled at trace time (S = n/L is
 small), so the whole mv is ordinary fused XLA with S window-local gathers
-— crash-free by construction at any n, since no gather operand ever
-exceeds L + 2W <= GATHER_ROW_CAP.
+— no gather operand ever exceeds L + 2W <= GATHER_ROW_CAP.
 
-Layout is width-major (w, n_pad) like ``sparse/ell.py`` (n in the lane
-dimension — the (n, w) orientation pads w to 128, a 16x memory blowup).
+Layout is width-major (w, n_pad) like ``sparse/ell.py``.
 Column indices are stored RELATIVE to the owning segment's window start,
 so the apply needs no index arithmetic.
 """
@@ -33,11 +33,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Keep every window comfortably under the libtpu gather crash region.
-# Two independent hazards bound the segment size: the gather OPERAND
-# (the window itself) and the per-gather INDEX COUNT (width * L) — plain
-# ELL crashes at >= ~2M rows = ~14M indices, so segments stay far below
-# both (600k-row windows put a 7-wide matrix at ~4M indices per gather).
+# Keep every window comfortably under the inherited gather limit (not
+# measured on the GPU).  Two hazards bounded the segment size there: the
+# gather OPERAND (the window itself) and the per-gather INDEX COUNT
+# (width * L) — plain ELL failed at >= ~2M rows = ~14M indices, so segments
+# stay far below both (600k-row windows put a 7-wide matrix at ~4M indices
+# per gather).
 WINDOW_CAP = 600_000
 
 

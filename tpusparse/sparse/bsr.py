@@ -2,22 +2,20 @@
 
 Role parity: PETSc's BAIJ family — the format PETSc recommends for
 multi-dof-per-node discretizations (the reference's Poisson has dof=1, but
-BASELINE.json's config 3 exercises BSR explicitly).  TPU-native design:
-blocks are stored as one dense (nnzb, bs, bs) array so y_block = B · x_block
-is a *batched small matmul* (einsum → MXU), and block-row accumulation is a
-segment-sum — no scalar indptr walks, static shapes throughout.
+BASELINE.json's config 3 exercises BSR explicitly).  Design: blocks are
+stored as one dense (nnzb, bs, bs) array so y_block = B · x_block is a
+*batched small matmul* (einsum, at full float32 precision), and block-row
+accumulation is a segment-sum — no scalar indptr walks, static shapes
+throughout.
 
 For bs=1 this degenerates to COO-with-sorted-rows (scalar case covered by
 ELL/stencil); the interesting regime is bs in {2..8} where each stored block
-amortizes its column index over bs^2 values and the MXU does the inner
-work.
+amortizes its column index over bs^2 values.
 
-Known issue (deployed v5e libtpu, 2026-08): gather-based sparse mv inside a
-``lax.while_loop`` crashes the TPU worker at >= ~2M rows (each constituent
-op is fine in isolation; CG + this mv at 64^3 is fine).  Workaround shipped:
-``solve/cg.cg_hostloop`` drives CG as fixed-trip fori_loop chunks (verified
-on-chip at 128^3) — use it for large gather-based solves on that toolchain.
-The structured stencil path — the benchmark path — is unaffected.
+Inherited known issue (not measured on the GPU): on the accelerator this
+was first built for, gather-based sparse mv inside a ``lax.while_loop``
+failed at >= ~2M rows; ``solve/cg.cg_hostloop`` (fixed-trip fori_loop
+chunks) was the workaround.
 """
 
 from __future__ import annotations
@@ -130,7 +128,8 @@ class BSR:
         """y = A @ x: gather x blocks, batched bs x bs matmuls, segment-sum."""
         xb = x.reshape(-1, self.bs)                      # (nbcols, bs)
         contrib = jnp.einsum(
-            "nij,nj->ni", self.blocks, xb[self.bcols]
+            "nij,nj->ni", self.blocks, xb[self.bcols],
+            precision=jax.lax.Precision.HIGHEST,
         )                                                # (nnzb, bs)
         yb = jax.ops.segment_sum(
             contrib, self.brows, num_segments=self.n_brows,
@@ -143,7 +142,8 @@ class BSR:
         k = x.shape[1]
         xb = x.reshape(-1, self.bs, k)                   # (nbcols, bs, k)
         contrib = jnp.einsum(
-            "nij,njk->nik", self.blocks, xb[self.bcols]
+            "nij,njk->nik", self.blocks, xb[self.bcols],
+            precision=jax.lax.Precision.HIGHEST,
         )                                                # (nnzb, bs, k)
         yb = jax.ops.segment_sum(
             contrib, self.brows, num_segments=self.n_brows,

@@ -4,7 +4,7 @@ Role parity: PETSc's ``MatSetValues`` accumulation stage before
 ``MatAssemblyEnd`` compaction (reference ``src/helper.cpp:236-243``):
 coordinate triplets are the natural form while entries are being produced
 (possibly with duplicates), before conversion to a compute layout (ELL /
-stencil).  On TPU the mv is a ``segment_sum`` over row ids — static shapes,
+stencil).  The mv is a ``segment_sum`` over row ids — static shapes,
 no atomics — adequate for setup-path products and as the general container
 for matrices too irregular for padded-ELL.
 

@@ -2,10 +2,10 @@
 
 Role parity: PETSc SeqAIJ's on-rank CSR triplet ``a->i / a->j / a->a``
 (the arrays the reference's OpenACC kernels operate on, e.g.
-``src/openacc-step1/MatMult_SeqAIJ.patch``).  In the TPU design CSR is a
-*host staging* format only: assembly and AMG setup produce HostCSR, which is
-then converted once into a device-resident padded-ELL layout (``ell.py``) —
-the TPU analogue of the reference's "upload matrix once, keep it resident"
+``src/openacc-step1/MatMult_SeqAIJ.patch``).  Here CSR is a *host
+staging* format only: assembly and AMG setup produce HostCSR, which is then
+converted once into a device-resident layout (``dia.py``, ``ell.py``) —
+the analogue of the reference's "upload matrix once, keep it resident"
 step-2 optimization (``src/openacc-step2/MatMult_SeqAIJ.patch``).
 """
 

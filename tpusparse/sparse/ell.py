@@ -1,20 +1,17 @@
-"""Device-resident padded-ELL sparse matrix — the TPU-native CSR replacement.
+"""Device-resident padded-ELL sparse matrix — fixed-width CSR replacement.
 
-Why ELL and not CSR on TPU: CSR's ragged rows defeat the VPU's 8x128 tiling
-and force scalar indptr walks.  Padding every row to a fixed width turns SpMV
+Why ELL and not CSR: CSR's ragged rows force dynamic shapes and scalar
+indptr walks.  Padding every row to a fixed width turns SpMV
 into dense, perfectly-tiled arrays — ``vals * x[cols]`` reduced along the
 width axis — a vectorized gather + reduction with no dynamic shapes.  Padded
 slots store ``col = 0, val = 0`` so the gather is always in-bounds and
 mask-free.
 
 Layout: arrays are stored **width-major**, shape ``(width, n_rows)`` — the
-ELL "column-major" convention.  This matters enormously on TPU: a
-``(n_rows, width)`` layout puts the small width in the minor (lane) dimension
-and every (8,128)-tiled temp pads width → 128, a **16x memory expansion**
-(measured: 13 GB of HLO temps for a 27M-row mv, OOMing the chip and crashing
-the TPU worker inside solver loops).  Width-major keeps n_rows in the lane
-dimension — negligible padding — and the mv is ``width`` contiguous gathers
-of full rows.
+ELL "column-major" convention.  It was chosen on the accelerator this was
+first built for, where a ``(n_rows, width)`` layout padded the small minor
+dimension to 128 lanes (not measured on the GPU); width-major keeps n_rows
+minor and the mv is ``width`` contiguous gathers of full rows.
 
 Residency parity: the reference's step-2 optimization keeps the CSR arrays
 resident on the GPU across MatMults and moves only x/y per call

@@ -1,10 +1,10 @@
 """Grid-view banded matrix — DIA with 3-D shift semantics.
 
-``DIA.mv`` applies bands as 1-D shifts of the FLAT vector; on TPU a flat
-shift by +-1 crosses vector lanes on a (8,128)-tiled 1-D layout and XLA
-inserts relayouts per band (measured 13.4 ms per 7-band apply at 300^3
-against a ~5 ms traffic floor).  When the operator lives on a known 3-D
-grid (the geometric aij path, ``amg/geo.py``), the same product is
+``DIA.mv`` applies bands as 1-D shifts of the FLAT vector (on the
+accelerator this was first built for, each shift cost a relayout; an
+inherited measurement, not repeated on the GPU).  When the operator lives
+on a known 3-D grid (the geometric aij path, ``amg/geo.py``), the same
+product is
 
     y3 = sum_k  B_k3 * shift3(x3, d3_k)
 

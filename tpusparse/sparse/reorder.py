@@ -2,21 +2,23 @@
 to the bounded-band executors.
 
 The reference's patched kernel is *general CSR* SpMV: any row structure,
-straight off ``a->i/a->j/a->a``
-(``/root/reference/src/openacc-step1/MatMult_SeqAIJ.patch:19-30``).  A TPU
-cannot stream scattered gathers the way a GPU's memory system absorbs them
-— the deployed libtpu crashes its worker on >~1.5M-row gather operands
-inside solver loops (``sparse/dia.py::GATHER_ROW_CAP``), and DIA storage
-explodes when the matrix occupies many distinct diagonals.  The TPU-native
-answer to "any CSR" is therefore a *reordering layer*: Reverse
+straight off ``a->i/a->j/a->a`` (the reference's
+``src/openacc-step1/MatMult_SeqAIJ.patch:19-30``).  This layer was built
+for an accelerator that could not stream scattered gathers (its runtime
+failed on >~1.5M-row gather operands inside solver loops,
+``sparse/dia.py::GATHER_ROW_CAP``; an inherited limit, not measured on the
+GPU), and DIA storage explodes when the matrix occupies many distinct
+diagonals.  Its answer to "any CSR" is a *reordering layer*: Reverse
 Cuthill-McKee bounds the graph bandwidth, after which every executor
 ingredient is bounded-band — DIA when few diagonals remain, the segmented
 ``sparse/bandell.BandedELL`` (window-local gathers only) otherwise.
 
 The permutation is carried by the solver shell (``ksp.KSP``): the system
 is solved in permuted space (``P A P^T (P x) = P b``) and the solution
-unpermuted on the way out — CG sees a similarity-transformed operator, so
-iteration counts are exactly the natural-order counts.
+unpermuted on the way out — CG sees a similarity-transformed operator.
+Unpreconditioned or point-Jacobi CG therefore takes the natural-order
+iteration counts; GAMG aggregates the permuted graph differently, so its
+counts can differ.
 """
 
 from __future__ import annotations

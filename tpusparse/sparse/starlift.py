@@ -1,17 +1,17 @@
 """Structure detection: lift an assembled general (MATAIJ) matrix to the
-fused structured executor when it IS a constant-coefficient 7-point star.
+structured executor when it IS a constant-coefficient 7-point star.
 
 The reference benchmarks exactly one matrix class — the DMDA-assembled
 7-point Poisson operator forced into generic CSR (``DMSetMatType(MATAIJ)``,
 /root/reference/src/helper.cpp:39) so that PETSc's patched general-CSR
 kernel gets exercised (src/openacc-step1/MatMult_SeqAIJ.patch:19-30).  A
-TPU-first library should do what a structure-aware Mat implementation does:
+structure-aware library should do what a structure-aware Mat implementation
+does:
 *prove* from the assembled coefficients that the matrix is a
 constant-per-axis star stencil (+ arbitrary diagonal field + optional
 MatZeroRowsColumns pin on row/col 0), and when the proof succeeds, run the
-production structured pipeline (PaddedStar + fused temporally-blocked
-Pallas kernels) instead of the generic banded executor — the difference
-between ~13 ms and ~2.3 ms per fine-level sweep at 300^3.
+structured pipeline (StarStencil3D + the structured GAMG hierarchy) instead
+of the generic banded executor.
 
 The proof is EXACT (bitwise equality against the candidate constants): any
 deviation — variable coefficients, asymmetric legs, nonzero entries at

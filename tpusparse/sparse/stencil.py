@@ -2,8 +2,8 @@
 
 The reference forces the DMDA-assembled 7-point Laplacian into generic CSR
 (``DMSetMatType(MATAIJ)``, ``src/helper.cpp:39``) because its whole point was
-accelerating PETSc's CSR kernel.  A TPU-first design keeps the structure the
-grid already gives us: the matrix action is six shifted reads plus a
+accelerating PETSc's CSR kernel.  This design keeps the structure the grid
+already gives us: the matrix action is six shifted reads plus a
 positionally-varying diagonal,
 
     y[k,j,i] = diag[k,j,i]*x[k,j,i]
@@ -54,7 +54,7 @@ def _shift(x: jax.Array, axis: int, direction: int) -> jax.Array:
 @partial(
     jax.tree_util.register_dataclass,
     data_fields=["diag", "cx", "cy", "cz"],
-    meta_fields=["pinned", "backend"],
+    meta_fields=["pinned"],
 )
 @dataclasses.dataclass
 class StarStencil3D:
@@ -64,12 +64,6 @@ class StarStencil3D:
     If ``pinned`` is true, row/column 0 (natural ordering) are zeroed except
     the diagonal — ``diag[0,0,0]`` holds the pinned diagonal value (the
     reference's ``scale``, ``src/helper.cpp:264-274``).
-
-    ``backend`` selects the SpMV implementation: "auto" (Pallas slab kernel
-    when on TPU, f32, single-device, supported shape; XLA otherwise), "xla"
-    (always the lax.pad pipeline — required for sharded fields, where GSPMD
-    partitions the pads), or "pallas" (force the kernel; raises if
-    unsupported).
     """
 
     diag: jax.Array          # (nz, ny, nx)
@@ -77,7 +71,6 @@ class StarStencil3D:
     cy: jax.Array            # scalar
     cz: jax.Array            # scalar
     pinned: bool
-    backend: str = "auto"
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -101,42 +94,10 @@ class StarStencil3D:
         i = jax.lax.broadcasted_iota(jnp.int32, shape, 2)
         return (k == 0) & (j == 0) & (i == 0)
 
-    def _pallas_eligible(self, x: jax.Array) -> bool:
-        """Trace-time backend choice (shapes/dtypes/platform are static)."""
-        if self.backend == "xla":
-            return False
-        from tpusparse.kernels.stencil7 import star7_supported
-
-        ok = star7_supported(self.diag.shape, x.dtype)
-        if self.backend == "pallas":
-            if not ok:
-                raise ValueError(
-                    f"pallas star7 unsupported for shape {self.diag.shape} "
-                    f"dtype {x.dtype}"
-                )
-            return True
-        import os
-
-        # "auto" currently requires an explicit opt-in on TPU while the
-        # kernel is being qualified against the deployed Mosaic toolchain
-        from tpusparse.kernels.stencil7 import is_tpu_backend
-
-        return (
-            ok
-            and is_tpu_backend()
-            and os.environ.get("TPUSPARSE_PALLAS", "0") == "1"
-        )
-
     def mv(self, x: jax.Array) -> jax.Array:
         """y = A @ x on the 3D field view (nz, ny, nx)."""
         if x.shape != self.diag.shape:
             raise ValueError(f"x shape {x.shape} != grid {self.diag.shape}")
-        if self._pallas_eligible(x):
-            from tpusparse.kernels.stencil7 import star7_mv_pallas
-
-            return star7_mv_pallas(
-                self.diag, self.cx, self.cy, self.cz, x, self.pinned
-            )
         if self.pinned:
             origin = self._origin_mask(x.shape)
             xn = jnp.where(origin, jnp.zeros((), x.dtype), x)
@@ -156,8 +117,8 @@ class StarStencil3D:
         return self.mv(x.reshape(self.diag.shape)).reshape(-1)
 
     def to_df(self) -> "StarStencilDF":
-        """Two-float twin of this (f64) operator for fast high-precision
-        applies on TPUs without native f64 (see utils/twofloat.py)."""
+        """Two-float twin of this (f64) operator: high-precision applies on
+        the f32 datapath (see utils/twofloat.py)."""
         from tpusparse.utils.twofloat import DF64
 
         return StarStencilDF(
@@ -235,7 +196,7 @@ class StarStencil3D:
 class StarStencilDF:
     """Two-float (double-single) twin of StarStencil3D: y = A x carried out
     entirely in paired-f32 arithmetic (~1.4e-14 relative precision) on the
-    f32 VPU datapath — the fast high-precision apply for TPUs whose f64 is
+    f32 datapath — the high-precision apply for devices whose f64 is
     emulated.  Fields are DF64 pytrees (utils/twofloat.py); shifts act on
     both components (exact), products/sums use error-free transformations.
     """

@@ -14,7 +14,7 @@ radius 1, giving the same bound), so every AMG level is representable as
 multiply-adds, no column indices, no gathers — each shift a single
 ``lax.pad`` crop/pad.
 
-This is the TPU-native replacement for storing coarse Galerkin operators in
+This is the replacement for storing coarse Galerkin operators in
 CSR/ELL: SpMV reads only dense coefficient planes at full HBM bandwidth.
 """
 

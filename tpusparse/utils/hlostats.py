@@ -22,7 +22,7 @@ _DTYPE_BYTES = {
 # `%name = f32[12,4,3]{2,1,0} collective-permute(...)` — capture the op's
 # RESULT type + which collective it is.  Tuple-typed results ((f32[...],
 # f32[...])) appear for variadic collectives; capture each member.
-# TPU-optimized post-scheduling HLO splits collectives into async
+# Post-scheduling HLO on accelerators splits collectives into async
 # `X-start` / `X-done` pairs — accept the `-start` form too (the `-done`
 # result repeats the payload, so only `-start` is counted), else the
 # validator silently reports zero collective bytes on real-hardware HLO

@@ -1,12 +1,12 @@
-"""Profiler integration — the TPU substitute for the reference's Score-P /
+"""Profiler integration — the substitute for the reference's Score-P /
 nvprof twin-binary infrastructure (SURVEY.md section 5.1).
 
 The reference compiles every executable three ways (plain, Score-P
 -instrumented, nvprof-ready; ``Makefile:48-51``) and drives them from
-dedicated PBS jobs.  On TPU the equivalent capability is one runtime switch:
+dedicated PBS jobs.  Here the equivalent capability is one runtime switch:
 wrap any region in ``trace()`` (or pass ``--profile`` to the CLI) and a
 TensorBoard/XProf trace with per-kernel timelines, HLO cost analysis, and
-DMA/ICI activity lands in the given directory — covering what the
+memory-copy activity lands in the given directory — covering what the
 reference's SCOREP_OPENACC_ENABLE kernel/memcpy capture and nvprof
 per-stream timelines covered.
 """

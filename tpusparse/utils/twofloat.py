@@ -1,12 +1,12 @@
 """Double-single ("two-float") arithmetic: ~48-bit-mantissa values as
 (hi, lo) f32 pairs, built from error-free transformations.
 
-Why: TPU v5e has no native f64 — XLA emulates it, and the emulation is
-catastrophically slow for our stencil applies (measured ~300x slower than
-f32 at 300^3, turning each outer defect-correction residual into ~0.9 s).
-Double-single arithmetic runs entirely on the f32 VPU datapath: each (hi, lo)
-field moves the same bytes as one f64 field, the extra flops fuse into the
-same HBM pass, and the result carries ~1.4e-14 relative precision — enough
+Why: it was built for an accelerator without native f64, where XLA's
+emulation made the f64 stencil applies slow; the H100 has native f64 and
+the comparison there is not measured yet.  Double-single arithmetic runs
+entirely on the f32 datapath: each (hi, lo) field moves the same bytes as
+one f64 field, the extra flops fuse into the same memory pass, and the
+result carries ~1.4e-14 relative precision — enough
 for the rtol 1e-8 benchmark gate and for all but the last decade of the
 reference's rtol 1e-14 config (strict-f64 mode remains available for that).
 
@@ -158,5 +158,5 @@ def df_norm2(x: DF64) -> jax.Array:
 
 
 def df_dot_f64ref(x: DF64, y: DF64) -> jax.Array:
-    """Reference dot via f64 (tests only — slow on TPU)."""
+    """Reference dot via f64 (tests only)."""
     return jnp.vdot(x.to_f64().reshape(-1), y.to_f64().reshape(-1))
